@@ -1,0 +1,73 @@
+"""Weight maps of tpuseg_torch, and the rule that it never imports jax."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_cross_parity import NC, _synth_state
+from tpuseg.models.maskrcnn import MaskRCNNConfig as JConfig
+from tpuseg.weights.detectron_map import from_torch_state
+from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.weights.detectron_map import load_detectron_weights
+from tpuseg_torch.weights.from_jax import state_dict_from_jax
+
+SLICE_MODULES = [
+    "tpuseg_torch", "tpuseg_torch.kernels", "tpuseg_torch.kernels.nms",
+    "tpuseg_torch.kernels.roi_align", "tpuseg_torch.core.boxes",
+    "tpuseg_torch.nn.layers", "tpuseg_torch.nn.resnet", "tpuseg_torch.nn.fpn",
+    "tpuseg_torch.ops.nms", "tpuseg_torch.ops.sampling",
+    "tpuseg_torch.ops.preprocess", "tpuseg_torch.models.maskrcnn",
+    "tpuseg_torch.weights.detectron_map", "tpuseg_torch.weights.from_jax",
+    "tpuseg_torch.engine.maskrcnn_engine", "tpuseg_torch.engine.predictor",
+    "tpuseg_torch.tools.maskrcnn_infer",
+]
+
+
+@pytest.fixture(scope="module")
+def synth():
+    return _synth_state(np.random.default_rng(3))
+
+
+def test_jax_params_round_trip_to_state_dict(synth):
+    cfg = M.MaskRCNNConfig(num_classes=NC)
+    sd = state_dict_from_jax(from_torch_state(synth, JConfig(num_classes=NC)),
+                             cfg)
+    assert sd.keys() == synth.keys()
+    for k, v in synth.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    M.build_model(cfg).load_state_dict(sd, strict=True)
+
+
+def test_load_detectron_checkpoint_quirks(synth, tmp_path):
+    """A checkpoint as upstream saves it: nested under "model", keys with
+    "module.", the anchor generator's buffers, and FrozenBN layers without
+    mean/var (folded Caffe2 conversions) -> loads strict, stats 0 / 1."""
+    sd = {f"module.{k}": torch.from_numpy(v) for k, v in synth.items()
+          if k not in ("backbone.body.stem.bn1.running_mean",
+                       "backbone.body.stem.bn1.running_var")}
+    sd["module.rpn.anchor_generator.cell_anchors.0"] = torch.zeros(3, 4)
+    path = tmp_path / "ckpt.pth"
+    torch.save({"model": sd, "iteration": 90000}, path)
+    model = load_detectron_weights(str(path), M.build_model(
+        M.MaskRCNNConfig(num_classes=NC)))
+    bn = model.backbone.body.stem.bn1
+    assert not bn.running_mean.any() and (bn.running_var == 1).all()
+    np.testing.assert_array_equal(
+        model.roi_heads.box.feature_extractor.fc6.weight.detach().numpy(),
+        synth["roi_heads.box.feature_extractor.fc6.weight"])
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')))\n"
+            "assert not bad, bad\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,103 @@
+"""COCODemo, the reference's predictor facade (port of
+``tpuseg/engine/predictor.py``; the R-50/101-FPN variant)::
+
+    from tpuseg_torch.engine.predictor import COCODemo
+    coco_demo = COCODemo(cfg, confidence_threshold=0.5, device="cuda")
+    predictions = coco_demo.run_on_opencv_image(image)  # BGR in, BGR out
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
+from tpuseg_torch.models.maskrcnn import MaskRCNNConfig
+
+CATEGORIES = [
+    "__background", "person", "bicycle", "car", "motorcycle", "airplane",
+    "bus", "train", "truck", "boat", "traffic light", "fire hydrant",
+    "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse",
+    "sheep", "cow", "elephant", "bear", "zebra", "giraffe", "backpack",
+    "umbrella", "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
+    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard",
+    "surfboard", "tennis racket", "bottle", "wine glass", "cup", "fork",
+    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
+    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
+    "couch", "potted plant", "bed", "dining table", "toilet", "tv", "laptop",
+    "mouse", "remote", "keyboard", "cell phone", "microwave", "oven",
+    "toaster", "sink", "refrigerator", "book", "clock", "vase", "scissors",
+    "teddy bear", "hair drier", "toothbrush",
+]
+
+
+def _cfg_get(node, path: str, default):
+    cur = node
+    for part in path.split("."):
+        try:
+            cur = cur[part]
+        except (KeyError, TypeError):
+            return default
+    return cur
+
+
+def model_config_from_node(node) -> MaskRCNNConfig:
+    """yacs-style tree -> MaskRCNNConfig (GeneralizedRCNN R-50/101-FPN)."""
+    conv_body = _cfg_get(node, "MODEL.BACKBONE.CONV_BODY", "R-50-FPN")
+    arch = _cfg_get(node, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN")
+    if (arch != "GeneralizedRCNN" or not conv_body.endswith("-FPN")
+            or not _cfg_get(node, "MODEL.MASK_ON", True)):
+        raise ValueError(f"{arch} / {conv_body}: only the FPN Mask R-CNN "
+                         "is ported so far")
+    return MaskRCNNConfig(
+        depth=101 if "101" in conv_body else 50,
+        rpn_pre_nms_top_n=int(_cfg_get(node, "MODEL.RPN.PRE_NMS_TOP_N_TEST", 1000)),
+        rpn_post_nms_top_n=int(_cfg_get(node, "MODEL.RPN.POST_NMS_TOP_N_TEST", 1000)),
+        fpn_post_nms_top_n=int(
+            _cfg_get(node, "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 1000)),
+        num_classes=int(_cfg_get(node, "MODEL.ROI_BOX_HEAD.NUM_CLASSES", 81)),
+    )
+
+
+class COCODemo:
+    def __init__(self, cfg=None, min_image_size: int | None = None,
+                 confidence_threshold: float = 0.7, weights: str | None = None,
+                 device="cpu"):
+        """``cfg``: None (R-50-FPN defaults) or a ConfigNode, whose
+        MODEL.WEIGHT and INPUT sizes are honoured unless overridden."""
+        model_cfg, max_size = None, 1333
+        if cfg is not None:
+            model_cfg = model_config_from_node(cfg)
+            weights = weights or _cfg_get(cfg, "MODEL.WEIGHT", "") or None
+            if min_image_size is None:
+                min_image_size = int(_cfg_get(cfg, "INPUT.MIN_SIZE_TEST", 800))
+            max_size = int(_cfg_get(cfg, "INPUT.MAX_SIZE_TEST", 1333))
+        self.predictor = MaskRCNNPredictor(
+            cfg=model_cfg, weights=weights,
+            confidence_threshold=confidence_threshold,
+            min_image_size=min_image_size or 800, max_image_size=max_size,
+            device=device)
+        self.confidence_threshold = confidence_threshold
+
+    def compute_prediction(self, image_bgr: np.ndarray) -> dict:
+        return self.predictor.run_on_bgr_image(image_bgr)
+
+    def select_top_predictions(self, predictions: dict) -> dict:
+        return self.predictor.select_top_predictions(predictions)
+
+    def run_on_opencv_image(self, image_bgr: np.ndarray) -> np.ndarray:
+        """BGR image -> BGR image with boxes, masks and labels drawn."""
+        import cv2
+
+        preds = self.select_top_predictions(self.compute_prediction(image_bgr))
+        vis = image_bgr.copy()
+        rng = np.random.default_rng(0)
+        for i in range(len(preds["scores"])):
+            color = tuple(int(c) for c in rng.integers(60, 255, 3))
+            m = preds["masks"][i].astype(bool)
+            vis[m] = (0.5 * vis[m] + 0.5 * np.asarray(color)).astype(np.uint8)
+            x1, y1, x2, y2 = preds["boxes"][i].astype(int)
+            cv2.rectangle(vis, (x1, y1), (x2, y2), color, 2)
+            name = CATEGORIES[int(preds["classes"][i]) + 1]
+            cv2.putText(vis, f"{name}: {preds['scores'][i]:.2f}",
+                        (x1, max(y1 - 4, 10)), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
+                        color, 1)
+        return vis

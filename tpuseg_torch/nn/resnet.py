@@ -1,0 +1,88 @@
+"""ResNet body, detectron flavour (port of ``tpuseg/nn/resnet.py``).
+
+Caffe2-style: FrozenBatchNorm2d, the stride on the 1x1 conv
+(``STRIDE_IN_1X1=True``), stem ``conv1``/``bn1``. Attribute paths follow
+maskrcnn-benchmark (``stem.conv1``, ``layer1.0.conv1``,
+``layer1.0.downsample.0``), so the upstream state_dict keys load as they are.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpuseg_torch.nn.layers import FrozenBatchNorm2d
+
+STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+
+def _conv(cin, cout, k, stride=1, padding=0):
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, mid: int, cout: int, stride: int):
+        super().__init__()
+        # stride_in_1x1: the stride sits on conv1, conv2 keeps stride 1
+        self.conv1 = _conv(cin, mid, 1, stride=stride)
+        self.bn1 = FrozenBatchNorm2d(mid)
+        self.conv2 = _conv(mid, mid, 3, padding=1)
+        self.bn2 = FrozenBatchNorm2d(mid)
+        self.conv3 = _conv(mid, cout, 1)
+        self.bn3 = FrozenBatchNorm2d(cout)
+        self.downsample = None
+        if cin != cout or stride != 1:
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride=stride),
+                                            FrozenBatchNorm2d(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class Stem(nn.Module):
+    def __init__(self, width: int):
+        super().__init__()
+        self.conv1 = _conv(3, width, 7, stride=2, padding=3)
+        self.bn1 = FrozenBatchNorm2d(width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        return F.max_pool2d(x, 3, 2, padding=1)
+
+
+class ResNet(nn.Module):
+    """x [B,3,H,W] -> [c2 /4, c3 /8, c4 /16, c5 /32].
+
+    ``width`` is the stem width (64 for R-50); stage ``i`` has
+    ``width * 2**i`` bottleneck channels and four times that at its output.
+    ``freeze_at`` is kept for the config's sake: at inference every weight
+    is frozen, so it changes nothing here.
+    """
+
+    def __init__(self, depth: int = 50, width: int = 64, freeze_at: int = 2):
+        super().__init__()
+        self.freeze_at = freeze_at
+        self.stem = Stem(width)
+        cin = width
+        for si, nblocks in enumerate(STAGE_BLOCKS[depth]):
+            mid = width * 2 ** si
+            cout = mid * 4
+            stride = 1 if si == 0 else 2
+            blocks = [Bottleneck(cin if bi == 0 else cout, mid, cout,
+                                 stride if bi == 0 else 1)
+                      for bi in range(nblocks)]
+            self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
+            cin = cout
+        self.out_channels = tuple(width * 2 ** si * 4 for si in range(4))
+
+    def forward(self, x: torch.Tensor) -> list:
+        x = self.stem(x)
+        feats = []
+        for si in range(4):
+            x = getattr(self, f"layer{si + 1}")(x)
+            feats.append(x)
+        return feats

@@ -1,0 +1,78 @@
+"""The JAX package's Mask R-CNN param tree -> the port's state_dict.
+
+The inverse of ``tpuseg/weights/detectron_map.py::from_torch_state``: conv
+kernels HWIO -> OIHW, linear weights [in, out] -> [out, in], fc6's rows
+back from the NHWC (H, W, C) flattening to upstream's (C, H, W), and the
+deconv kernel [kh, kw, in, out] -> [in, out, kh, kw]. Takes numpy arrays
+(``np.asarray`` of the JAX leaves), so this module needs no jax.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _conv(sd: dict, name: str, p: dict) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["weight"]).transpose(3, 2, 0, 1))
+    if p.get("bias") is not None:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _bn(sd: dict, name: str, p: dict) -> None:
+    for k in ("weight", "bias", "running_mean", "running_var"):
+        sd[f"{name}.{k}"] = _t(p[k])
+
+
+def _linear(sd: dict, name: str, p: dict, weight=None) -> None:
+    w = np.asarray(p["weight"]) if weight is None else weight
+    sd[f"{name}.weight"] = _t(w.T)
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def state_dict_from_jax(params: dict, cfg) -> dict:
+    """``params``: the tree ``from_torch_state``/``init_params`` returns;
+    ``cfg``: the port's (or the JAX) ``MaskRCNNConfig``."""
+    sd = {}
+    body = "backbone.body."
+    bb = params["backbone"]
+    _conv(sd, body + "stem.conv1", bb["stem"]["conv"])
+    _bn(sd, body + "stem.bn1", bb["stem"]["bn"])
+    for si in range(4):
+        for bi, blk in enumerate(bb[f"layer{si + 1}"]):
+            base = f"{body}layer{si + 1}.{bi}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{base}.conv{i}", blk[f"conv{i}"])
+                _bn(sd, f"{base}.bn{i}", blk[f"bn{i}"])
+            if blk.get("downsample") is not None:
+                _conv(sd, f"{base}.downsample.0", blk["downsample"]["conv"])
+                _bn(sd, f"{base}.downsample.1", blk["downsample"]["bn"])
+    for i in range(4):
+        _conv(sd, f"backbone.fpn.fpn_inner{i + 1}", params["fpn"]["inner"][i])
+        _conv(sd, f"backbone.fpn.fpn_layer{i + 1}", params["fpn"]["layer"][i])
+    for src, dst in (("conv", "conv"), ("cls", "cls_logits"),
+                     ("bbox", "bbox_pred")):
+        _conv(sd, f"rpn.head.{dst}", params["rpn"][src])
+    bh = params["box_head"]
+    c, r = cfg.fpn_channels, cfg.pooler_resolution
+    fc6 = np.asarray(bh["fc6"]["weight"]).reshape(r, r, c, -1)
+    fc6 = fc6.transpose(2, 0, 1, 3).reshape(c * r * r, -1)  # rows (C, H, W)
+    _linear(sd, "roi_heads.box.feature_extractor.fc6", bh["fc6"], weight=fc6)
+    _linear(sd, "roi_heads.box.feature_extractor.fc7", bh["fc7"])
+    _linear(sd, "roi_heads.box.predictor.cls_score", bh["cls_score"])
+    _linear(sd, "roi_heads.box.predictor.bbox_pred", bh["bbox_pred"])
+    if "mask_head" in params:
+        mh = params["mask_head"]
+        for i in range(1, 5):
+            _conv(sd, f"roi_heads.mask.feature_extractor.mask_fcn{i}",
+                  mh[f"mask_fcn{i}"])
+        sd["roi_heads.mask.predictor.conv5_mask.weight"] = _t(
+            np.asarray(mh["conv5_mask"]["weight"]).transpose(2, 3, 0, 1))
+        sd["roi_heads.mask.predictor.conv5_mask.bias"] = _t(
+            mh["conv5_mask"]["bias"])
+        _conv(sd, "roi_heads.mask.predictor.mask_fcn_logits",
+              mh["mask_fcn_logits"])
+    return sd
