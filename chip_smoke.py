@@ -7,18 +7,30 @@ Needs one CUDA card and nvcc (builds the kernels from tpuseg_torch/csrc).
 Phases, one line each; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit);
   2. build of the CUDA kernels;
-  3. the NMS kernel against its plain version at the main path's shapes
+  3. the NMS kernel against its plain version at the main paths' shapes
      (keep masks identical);
-  4. the RoIAlign kernel against its plain version at the main path's shapes
-     (f32: atol = rtol = 1e-5; bf16: |err| <= 2^-8 |ref| + 1e-3, ref the
-     plain version computed in f32 on the same bf16 inputs);
-  5. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
+  4. the RoIAlign kernel against its plain version at the main paths'
+     shapes (f32: atol = rtol = 1e-5; bf16: |err| <= 2^-8 |ref| + 1e-3, ref
+     the plain version computed in f32 on the same bf16 inputs);
+  5. the RoIAlign backward kernel against its plain version at the training
+     step's shapes (f32: atol 1e-5 max|ref|, rtol 1e-5, since atomics add in
+     an order that changes from run to run; bf16: |err| <= 2^-8 |ref| +
+     1e-3 against the plain version in f32), and the differentiable
+     pooler's feature gradient against the kernel's;
+  6. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
      (full width, 81 classes, synthetic upstream-keyed weights from a numpy
      seed): launch counts per forward, sane outputs, and the heads run on
      one shared pyramid through the kernels and through the plain versions
      must agree detection for detection;
-  6. timings: each kernel against its plain version, forward img/s at
-     B = 1 and 2 on the 800x1344 canvas through both paths.
+  7. Mask R-CNN R-50-FPN training through do_train: 3 iterations at B = 2
+     on the 800x1344 canvas over an in-memory synthetic dataset, launch
+     counts per step, finite losses, frozen stages still and the rest
+     moved; then one step on one batch with the same draws and TF32 off,
+     through the kernels and through the plain versions (losses rtol 1e-6,
+     gradients rtol 1e-4 / atol 1e-6 max|g|);
+  8. timings: each kernel against its plain version, forward img/s at
+     B = 1 and 2 and the training step at B = 2 on the 800x1344 canvas
+     through both paths.
 Then one JSON line of kernel results, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -30,14 +42,18 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from tpuseg_torch import kernels
+from tpuseg_torch.engine import detectron_train_loop as TL
 from tpuseg_torch.engine.maskrcnn_engine import (MaskRCNNPredictor,
                                                  preprocess_image_bgr)
+from tpuseg_torch.engine.trainer import make_optimizer
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops import sampling
 
@@ -50,6 +66,20 @@ STRIDES = (4, 8, 16, 32)
 # than the 2048 slots (so the candidate cut is not decided by near-ties), and
 # no softmax score saturates at 1.0 (272 candidates at a 320x480 canvas)
 CLS_SCORE_SCALE = 0.008
+TRAIN_STEPS = 3
+PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2}
+# the backward's shapes at B = 2: the box pooler's 2 x 512 sampled rois at
+# P = 7 and the mask pooler's 2 x 128 at P = 14
+BWD_SHAPES = ((1024, 7), (256, 14))
+PIXEL_VAR = 75.0 ** 2  # of textured_image's pixels less the pixel mean
+# the least time of a kernel's work: bytes over the H100 SXM's memory rate,
+# f32 operations over its rate outside the tensor cores (the H100 SXM's
+# published peaks; the kernels compute in f32 for bf16 data too)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+NMS_OPS_PER_PAIR = 16  # the IoU: 2 min, 2 max, 4 sub/add, 2 clamp, mul,
+#                        add, sub, clamp, div; the threshold compare
+ROI_OPS_PER_SAMPLE = 12  # per channel: 4 corner weights, 4 mul, 4 add
 
 
 def log(msg: str) -> None:
@@ -101,11 +131,12 @@ def random_boxes(g: torch.Generator, shape, dev, extent=CANVAS, clusters=40):
 
 
 def nms_cases(dev):
-    """(label, boxes, scores, valid, classes or None, thr) at the main path's
-    shapes: B = 2; N = 819 (P6), 1000 (RPN levels), 2048 (final, class-aware)."""
+    """(label, boxes, scores, valid, classes or None, thr) at the main paths'
+    shapes: B = 2; N = 819 (P6), 1000 (RPN levels at inference), 2000 (RPN
+    levels in training), 2048 (final, class-aware)."""
     g = torch.Generator().manual_seed(SEED + 3)
     cases = []
-    for n, thr in ((819, 0.7), (1000, 0.7), (2048, 0.5)):
+    for n, thr in ((819, 0.7), (1000, 0.7), (2000, 0.7), (2048, 0.5)):
         boxes = random_boxes(g, (2, n), dev)
         scores = torch.rand(2, n, generator=g).to(dev)
         valid = (torch.rand(2, n, generator=g) < 0.9).to(dev)
@@ -211,7 +242,96 @@ def phase_roi_align(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the slice
+# phase 5: RoIAlign backward
+# ---------------------------------------------------------------------------
+
+
+def bwd_case(dev, n: int, p: int, dtype=torch.float32):
+    """(d(pooled) [N, 256, P, P], boxes, batch_idx, levels, level shapes)."""
+    g = torch.Generator().manual_seed(SEED + 5 + n)
+    shapes = [(2, 256, h, w) for h, w in LEVEL_HW]
+    boxes = random_boxes(g, (n,), dev)
+    bidx = torch.randint(0, 2, (n,), generator=g).to(dev)
+    probe = [torch.empty(sh, dtype=dtype, device="meta") for sh in shapes]
+    levels = sampling.clamp_levels_to_window(probe, boxes,
+                                             M.assign_levels(boxes), STRIDES)
+    grad = torch.randn(n, 256, p, p, generator=g).to(dev, dtype)
+    return grad, boxes, bidx, levels, shapes
+
+
+def run_bwd(case, p: int, dtype):
+    grad, boxes, bidx, levels, shapes = case
+    return sampling.multilevel_roi_align_backward(grad, boxes, bidx, levels,
+                                                  shapes, dtype, p, 2, STRIDES)
+
+
+def bwd_error(got, want, dtype, label: str) -> float:
+    """Max |got - want| over the levels; raises past the tolerance. f32:
+    atomics add in an order that changes from run to run, so the kernel
+    meets the plain backward to rounding: atol 1e-5 max|ref| (per level),
+    rtol 1e-5. bf16 features: ``want`` is the plain backward in f32, and
+    the kernel's f32 sum is rounded once to bf16: 2^-8 |ref| + 1e-3."""
+    worst = 0.0
+    for lv, (a, w) in enumerate(zip(got, want)):
+        if a.shape != w.shape or a.dtype != dtype:
+            raise AssertionError(f"{label} level {lv}: {a.dtype} "
+                                 f"{tuple(a.shape)}, want {dtype} "
+                                 f"{tuple(w.shape)}")
+        err = (a.float() - w).abs()
+        if dtype == torch.float32:
+            tol = 1e-5 * w.abs() + 1e-5 * float(w.abs().max())
+        else:
+            tol = 2.0 ** -8 * w.abs() + 1e-3
+        excess = float((err - tol).max())
+        if excess > 0:
+            raise AssertionError(f"{label} level {lv}: error exceeds the "
+                                 f"tolerance by {excess}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_roi_align_bwd(dev) -> dict:
+    worst, lines = 0.0, []
+    for n, p in BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            case = bwd_case(dev, n, p, dt)
+            got = run_bwd(case, p, dt)
+            grad, boxes, bidx, levels, shapes = case
+            with kernels.force_plain():
+                want = sampling.multilevel_roi_align_backward(
+                    grad.float(), boxes, bidx, levels, shapes, torch.float32,
+                    p, 2, STRIDES)
+            err = bwd_error(got, want, dt, f"N={n} P={p} {dt}")
+            if dt == torch.float32:
+                worst = max(worst, err)
+            lines.append(f"N={n} P={p} {str(dt)[6:]} max err {err:.3g}")
+    # the differentiable pooler on channels-last levels that need grad:
+    # one forward and one backward launch, and .grad equal to the kernel's
+    # output for the same d(pooled)
+    case = bwd_case(dev, *BWD_SHAPES[0])
+    grad, boxes, bidx, levels, shapes = case
+    g = torch.Generator().manual_seed(SEED + 6)
+    feats = [torch.randn(sh, generator=g).to(dev)
+             .contiguous(memory_format=torch.channels_last).requires_grad_()
+             for sh in shapes]
+    kernels.reset_launch_counts()
+    out = sampling.multilevel_roi_align(feats, boxes, bidx, levels,
+                                        BWD_SHAPES[0][1], 2, STRIDES)
+    out.backward(grad)
+    counts = kernels.launch_counts()
+    if counts != {"nms": 0, "roi_align": 1, "roi_align_bwd": 1}:
+        raise AssertionError(f"pooler forward + backward launched {counts}")
+    err = bwd_error([f.grad for f in feats],
+                    run_bwd(case, BWD_SHAPES[0][1], torch.float32),
+                    torch.float32, "autograd .grad vs the kernel")
+    log("[5 roi_align_bwd] within tolerance of the plain backward: "
+        + "; ".join(lines) + f"; the pooler's autograd .grad (channels-last "
+        f"leaves) vs the kernel's output: max err {err:.3g}")
+    return {"max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the inference slice
 # ---------------------------------------------------------------------------
 
 
@@ -244,18 +364,20 @@ def synthetic_state_dict(model: torch.nn.Module, seed: int) -> dict:
     return sd
 
 
+def textured_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """[h, w, 3] uint8: smooth random blobs plus noise, so the backbone sees
+    structure."""
+    low = rng.uniform(0, 255, (h // 40 + 1, w // 40 + 1, 3))
+    img = np.kron(low, np.ones((40, 40, 1)))[:h, :w]
+    img += rng.normal(0, 20, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def synthetic_images(seed: int):
-    """Two landscape 800x1200 and one portrait 1200x800 BGR images: smooth
-    random blobs plus noise, so the backbone sees structure."""
+    """Two landscape 800x1200 and one portrait 1200x800 BGR images."""
     rng = np.random.default_rng(seed)
-
-    def image(h, w):
-        low = rng.uniform(0, 255, (h // 40 + 1, w // 40 + 1, 3))
-        img = np.kron(low, np.ones((40, 40, 1)))[:h, :w]
-        img += rng.normal(0, 20, (h, w, 3))
-        return np.clip(img, 0, 255).astype(np.uint8)
-
-    return [image(800, 1200), image(800, 1200)], image(1200, 800)
+    return ([textured_image(rng, 800, 1200), textured_image(rng, 800, 1200)],
+            textured_image(rng, 1200, 800))
 
 
 def check_result(res: dict, h: int, w: int) -> int:
@@ -307,7 +429,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
     res_p = pred.run_on_bgr_image(portrait)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    per_forward = {"nms": 6, "roi_align": 2}
+    per_forward = {"nms": 6, "roi_align": 2, "roi_align_bwd": 0}
     if after_l != per_forward or counts != {k: 2 * v for k, v in per_forward.items()}:
         raise AssertionError(f"launches: {after_l} after the landscape batch, "
                              f"{counts} after the portrait image; want "
@@ -316,7 +438,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
             for r, img in zip(res_l + [res_p], landscape + [portrait])]
     if min(ndet) == 0:
         raise AssertionError(f"no detections: {ndet}")
-    log(f"[5 slice] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
+    log(f"[6 inference] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
         f"images: launches {counts} (6 NMS + 2 RoIAlign per forward), "
         f"detections {ndet}")
 
@@ -334,7 +456,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-    log(f"[5 slice] heads on one pyramid, kernels vs plain: "
+    log(f"[6 inference] heads on one pyramid, kernels vs plain: "
         f"{compare_heads(got, want)}; valid proposals "
         f"{got['proposal_valid'].sum(1).tolist()}, class-box candidates "
         f"{got['candidate_valid'].sum(1).tolist()}")
@@ -353,7 +475,176 @@ def canvas_batch(pred: MaskRCNNPredictor, imgs: list):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+
+class SyntheticDataset:
+    """In memory, with the interface do_train reads (that of the JAX
+    package's CocoDetectionDataset): landscape 800x1200 RGB images, so the
+    800x1344 canvas takes them without a resize, each with ``n_gt`` gt
+    boxes, elliptic blob masks inside them painted into the image, and
+    classes 0..79."""
+
+    def __init__(self, seed: int, n_images: int = 4, n_gt: int = 10,
+                 h: int = 800, w: int = 1200):
+        rng = np.random.default_rng(seed)
+        self.image_ids = list(range(1, n_images + 1))
+        self.coco = SimpleNamespace(
+            imgs={i: {"width": w, "height": h} for i in self.image_ids})
+        self._data = {}
+        yy, xx = np.mgrid[:h, :w]
+        for i in self.image_ids:
+            img = textured_image(rng, h, w)
+            wh = rng.uniform(0.04, 0.33, (n_gt, 2)) * [w, h]
+            xy = rng.uniform(0, 1, (n_gt, 2)) * ([w, h] - wh)
+            boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+            masks = np.zeros((n_gt, h, w), np.uint8)
+            for j, (x1, y1, x2, y2) in enumerate(boxes):
+                cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
+                masks[j] = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+                img[masks[j] > 0] = rng.integers(0, 256, 3)
+            self._data[i] = (img, {
+                "boxes": boxes,
+                "classes": rng.integers(0, 80, n_gt).astype(np.int64),
+                "masks": masks,
+                "iscrowd": np.zeros(n_gt, np.int64)})
+
+    def load_image(self, iid) -> np.ndarray:
+        return self._data[iid][0].copy()
+
+    def load_target(self, iid) -> dict:
+        return {k: v.copy() for k, v in self._data[iid][1].items()}
+
+
+def frozen_names(model) -> list:
+    """State-dict keys that must not train: the stem and layer1
+    (FREEZE_CONV_BODY_AT 2) and every FrozenBN buffer."""
+    names = [k for k in model.state_dict()
+             if k.startswith(("backbone.body.stem.", "backbone.body.layer1."))]
+    for m_name, m in model.named_modules():
+        if isinstance(m, FrozenBatchNorm2d):
+            names += [f"{m_name}.{b}" for b, _ in m.named_buffers()]
+    return sorted(set(names))
+
+
+def step_grads(model, images, image_hw, targets, seed: int) -> tuple:
+    """Losses and parameter gradients of one training forward + backward,
+    the samplers drawing from a generator seeded with ``seed``."""
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=images.device).manual_seed(seed)
+    losses = M.forward_train_losses(model, images, image_hw, targets,
+                                    generator=gen)
+    losses["total"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def compare_steps(got: tuple, want: tuple) -> str:
+    """Kernel path vs plain path of one step: losses rtol 1e-6 (the forward
+    is the same: K1 and K2 equal their plain versions bit for bit), every
+    gradient rtol 1e-4 / atol 1e-6 max|g| (the backward kernel adds with
+    atomics, in an order that changes from run to run, as does the plain
+    version's index_add_ on the card)."""
+    (gl, gg), (wl, wg) = got, want
+    for k, w in wl.items():
+        if not abs(gl[k] - w) <= 1e-6 * abs(w):
+            raise AssertionError(f"loss {k}: kernels {gl[k]!r}, plain {w!r}")
+    if sorted(gg) != sorted(wg):
+        raise AssertionError("the two paths give gradients to other parameters")
+    worst, zero = 0.0, []
+    for name, w in wg.items():
+        scale = float(w.abs().max())
+        if scale == 0.0:
+            zero.append(name)
+            if bool(gg[name].abs().max() > 0):
+                raise AssertionError(f"{name}: plain gradient 0, kernels not")
+            continue
+        err = (gg[name] - w).abs()
+        excess = float((err - (1e-4 * w.abs() + 1e-6 * scale)).max())
+        if excess > 0:
+            raise AssertionError(f"gradient {name}: error exceeds rtol 1e-4 / "
+                                 f"atol 1e-6 max|g| by {excess}")
+        worst = max(worst, float(err.max()) / scale)
+    return (f"losses equal to rtol 1e-6 ({', '.join(f'{k} {v:.6g}' for k, v in gl.items())}); "
+            f"{len(wg)} gradients within rtol 1e-4 / atol 1e-6 max|g|, "
+            f"largest error {worst:.3g} of max|g|; zero on both paths: "
+            f"{len(zero)}")
+
+
+def phase_train(dev, tmp: Path) -> dict:
+    cfg = M.MaskRCNNConfig()
+    model = M.build_model(cfg)
+    sd = synthetic_state_dict(model, SEED + 7)
+    # a trained network's FrozenBN statistics match its activations: the
+    # stem's variance is set to that of the mean-subtracted pixels it sees,
+    # so activations are of unit scale and SGD at upstream's learning rate
+    # does not blow them up in a few steps, as it does from unit variances
+    sd["backbone.body.stem.bn1.running_var"] *= PIXEL_VAR
+    model.load_state_dict(sd, strict=True)
+    data = SyntheticDataset(SEED + 7)
+    model = model.to(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    kernels.reset_launch_counts()
+    model, it, history = TL.do_train(
+        data, cfg, model=model, max_steps=TRAIN_STEPS, ims_per_batch=2,
+        checkpoint_period=TRAIN_STEPS, log_every=1, output_dir=str(tmp),
+        device=dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: TRAIN_STEPS * v for k, v in PER_STEP.items()}
+    if it != TRAIN_STEPS or counts != want:
+        raise AssertionError(f"{it} iterations launched {counts}; want "
+                             f"{TRAIN_STEPS} launching {want}")
+    bad = [h for h in history if not all(np.isfinite(v) for v in h.values())]
+    if bad or len(history) != TRAIN_STEPS:
+        raise AssertionError(f"losses not finite: {bad}")
+    after = model.state_dict()
+    frozen = frozen_names(model)
+    moved_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    still = [n for n in trainable if torch.equal(after[n], before[n])]
+    if moved_frozen or still or set(trainable) & set(frozen):
+        raise AssertionError(f"frozen that moved: {moved_frozen}; trainable "
+                             f"that did not: {still}")
+    fresh = M.build_model(cfg)
+    ckpt = torch.load(tmp / f"model_{TRAIN_STEPS:07d}.pth", weights_only=True)
+    fresh.load_state_dict(ckpt["model"], strict=True)
+    log(f"[7 train] do_train {it} iterations at B = 2 on the 800x1344 canvas: "
+        f"launches {counts} ({PER_STEP} per step); total loss "
+        f"{[round(h['total'], 4) for h in history]}; {len(frozen)} frozen "
+        f"tensors still, {len(trainable)} trainable parameters moved; "
+        f"model_{TRAIN_STEPS:07d}.pth loads with strict=True")
+
+    # one step on one batch through the kernels and the plain versions,
+    # with the same draws; TF32 off so only the kernels differ
+    rng = np.random.default_rng(SEED + 8)
+    batch = TL.batch_to_device([TL.build_train_example(data, i, rng=rng)
+                                for i in data.image_ids[:2]], dev)
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kernels.reset_launch_counts()
+        got = step_grads(model, *batch, seed=SEED + 9)
+        path_counts = kernels.launch_counts()
+        with kernels.force_plain():
+            want = step_grads(model, *batch, seed=SEED + 9)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    if path_counts != PER_STEP:
+        raise AssertionError(f"kernel-path step launched {path_counts}")
+    log(f"[7 train] one step, kernels vs plain (cudnn.allow_tf32 False, "
+        f"matmul precision {torch.get_float32_matmul_precision()}): "
+        f"{compare_steps(got, want)}")
+    return {"model": model, "batch": batch, "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timing
 # ---------------------------------------------------------------------------
 
 
@@ -369,19 +660,105 @@ def time_pair(fn, iters=20) -> tuple:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def phase_timing(dev, pred, card: str) -> dict:
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, what bounds it): bytes over the memory rate against f32
+    operations over the f32 rate, the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nms_pairs(boxes, scores, valid, classes, thr: float) -> int:
+    """IoU tests that greedy NMS needs on these inputs: each kept box
+    against every lower-scored box still alive at its turn (of its own
+    class, for the class-aware NMS), over the batch."""
+    total = 0
+    for i in range(boxes.shape[0]):
+        order = torch.sort(scores[i], descending=True, stable=True).indices
+        b = boxes[i][order].double().cpu().numpy()
+        alive = valid[i][order].cpu().numpy().copy()
+        cls = (classes[i][order].cpu().numpy() if classes is not None
+               else np.zeros(len(b), np.int64))
+        area = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+        for j in range(len(b)):
+            if not alive[j]:
+                continue
+            rest = np.nonzero(alive[j + 1:] & (cls[j + 1:] == cls[j]))[0] + j + 1
+            total += rest.size
+            iw = (np.minimum(b[j, 2], b[rest, 2]) - np.maximum(b[j, 0], b[rest, 0])
+                  + 1).clip(0)
+            ih = (np.minimum(b[j, 3], b[rest, 3]) - np.maximum(b[j, 1], b[rest, 1])
+                  + 1).clip(0)
+            inter = iw * ih
+            alive[rest[inter / (area[j] + area[rest] - inter) > thr]] = False
+    return total
+
+
+def nms_bound(boxes, scores, valid, classes, thr) -> tuple:
+    n = boxes.numel() // 4
+    nbytes = n * (16 + 4 + 1 + 1) + (0 if classes is None else n * 8)
+    return bound(nbytes, NMS_OPS_PER_PAIR * nms_pairs(boxes, scores, valid,
+                                                      classes, thr))
+
+
+def pyramid_bytes(itemsize: int) -> int:
+    return 2 * 256 * sum(h * w for h, w in LEVEL_HW) * itemsize
+
+
+def touched_cells(boxes, bidx, levels, p: int) -> int:
+    """Distinct (image, level, y, x) cells that the forward's bilinear
+    samples give a non-zero weight on these rois: the feature cells the
+    function needs."""
+    lat, _, _ = sampling._pyramid_lattice(LEVEL_HW, boxes.float(), bidx,
+                                          levels, p, 2, STRIDES)
+    idx4, w4 = sampling._corners(lat, slice(None))
+    return int(torch.unique(idx4[w4 != 0]).numel())
+
+
+def roi_bound(n: int, p: int, feat_bytes: int, itemsize: int) -> tuple:
+    """RoIAlign forward or backward: ``feat_bytes`` of features read (the
+    forward) or of their gradient written (the backward), the rois (f32
+    boxes, int32 image and level) and [N, 256, P, P] in ``itemsize``;
+    4 S*S samples' arithmetic per pooled value."""
+    nbytes = feat_bytes + n * (16 + 4 + 4) + n * 256 * p * p * itemsize
+    return bound(nbytes, n * 256 * p * p * 4 * ROI_OPS_PER_SAMPLE)
+
+
+def roi_fwd_bound(case, p: int, itemsize: int) -> tuple:
+    """K2 reads only the cells its samples weigh, 256 channels each."""
+    _, boxes, bidx, levels = case
+    cells = touched_cells(boxes, bidx, levels, p)
+    return roi_bound(boxes.shape[0], p, cells * 256 * itemsize, itemsize)
+
+
+def roi_bwd_bound(n: int, p: int, itemsize: int) -> tuple:
+    """K3 writes the gradient of every cell of P2-P5, touched or not."""
+    return roi_bound(n, p, pyramid_bytes(itemsize), itemsize)
+
+
+def phase_timing(dev, pred, train: dict, card: str) -> dict:
     times = {}
     with torch.inference_mode():
         for label, boxes, scores, valid, classes, thr in nms_cases(dev):
             if label.startswith("dup"):
                 continue
             k, p = time_pair(lambda: run_nms(boxes, scores, valid, classes, thr))
-            times[f"nms B=2 {label}"] = (k, p)
+            times[f"nms B=2 {label}"] = (k, p) + nms_bound(boxes, scores,
+                                                           valid, classes, thr)
         for n, pp in ((2000, 7), (200, 14)):
             for dt in (torch.float32, torch.bfloat16):
                 case = roi_case(dev, n, dt)
                 k, p = time_pair(lambda: run_roi(case, pp), iters=10)
-                times[f"roi_align {str(dt)[6:]} N={n} P={pp}"] = (k, p)
+                size = torch.tensor([], dtype=dt).element_size()
+                times[f"roi_align {str(dt)[6:]} N={n} P={pp}"] = (
+                    (k, p) + roi_fwd_bound(case, pp, size))
+        for n, pp in BWD_SHAPES:
+            for dt in (torch.float32, torch.bfloat16):
+                case = bwd_case(dev, n, pp, dt)
+                k, p = time_pair(lambda: run_bwd(case, pp, dt), iters=10)
+                size = torch.tensor([], dtype=dt).element_size()
+                times[f"roi_align_bwd {str(dt)[6:]} N={n} P={pp}"] = (
+                    (k, p) + roi_bwd_bound(n, pp, size))
         landscape, _ = synthetic_images(SEED)
         for b in (1, 2):
             images, image_hw = canvas_batch(pred, landscape[:b])
@@ -389,16 +766,45 @@ def phase_timing(dev, pred, card: str) -> dict:
                 lambda: M.forward_inference(pred.model, images, image_hw),
                 iters=5)
             times[f"forward B={b} 800x1344"] = (k, p)
-    for name, (k, p) in times.items():
+    for name, t in times.items():
         if name.startswith("forward"):
             b = int(name.split("B=")[1][0])
-            log(f"[6 timing] {name}: kernels {1e3 * b / k:.2f} img/s "
-                f"({k:.3f} ms), plain {1e3 * b / p:.2f} img/s ({p:.3f} ms) "
-                f"[{card}]")
+            log(f"[8 timing] {name}: kernels {1e3 * b / t[0]:.2f} img/s "
+                f"({t[0]:.3f} ms), plain {1e3 * b / t[1]:.2f} img/s "
+                f"({t[1]:.3f} ms) [{card}]")
         else:
-            log(f"[6 timing] {name}: kernel {k:.4f} ms, plain {p:.4f} ms "
-                f"[{card}]")
+            log(f"[8 timing] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
+                f"ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
+
+    # the training step (forward, backward, SGD) at B = 2 with TF32
+    # convolutions as do_train runs them: kernels, plain once, kernels
+    model = train["model"]
+    opt = make_optimizer(model, 0.0025)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step():
+        TL.train_step(model, opt, 0.0025 / 3, *train["batch"], gen)
+
+    k1 = cuda_time_ms(step, iters=5, warmup=2)
+    with kernels.force_plain():
+        p = cuda_time_ms(step, iters=1, warmup=0)
+    k2 = cuda_time_ms(step, iters=5, warmup=0)
+    k = (k1 + k2) / 2
+    times["train step B=2 800x1344"] = (k, p)
+    log(f"[8 timing] train step B=2 800x1344: kernels {k:.3f} ms "
+        f"({1e3 / k:.3f} it/s; two runs of 5: {k1:.3f}, {k2:.3f}), plain "
+        f"{p:.3f} ms ({1e3 / p:.3f} it/s, one step) [{card}]")
     return times
+
+
+def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err, "ms": t[0],
+            "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+            # no PyTorch call computes NMS or multi-level RoIAlign (or its
+            # gradient) without torchvision, which is not a dependency
+            "library_ms": None}
 
 
 def main() -> int:
@@ -421,22 +827,29 @@ def main() -> int:
 
     nms_res = phase_nms(dev)
     roi_res = phase_roi_align(dev)
+    bwd_res = phase_roi_align_bwd(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        pred, counts = phase_slice(dev, Path(tmp))
-    times = phase_timing(dev, pred, card)
+        pred, infer_counts = phase_slice(dev, Path(tmp))
+        train = phase_train(dev, Path(tmp))
+    times = phase_timing(dev, pred, train, card)
 
-    k_nms, p_nms = times["nms B=2 class-aware N=2048"]
-    k_roi, p_roi = times["roi_align float32 N=2000 P=7"]
+    def launches(name):
+        return {"inference": infer_counts[name],
+                "training": train["counts"][name]}
+
     log(json.dumps({"kernels": [
-        {"name": "nms", "route": "cuda", "source": "tpuseg_torch/csrc/nms.cu",
-         "replaces": "tpuseg/ops/pallas/nms_pl.py:138",
-         "launches": counts["nms"], "max_abs_err": nms_res["max_abs_err"],
-         "ms": k_nms, "plain_ms": p_nms},
-        {"name": "roi_align", "route": "cuda",
-         "source": "tpuseg_torch/csrc/roi_align.cu",
-         "replaces": "tpuseg/ops/pallas/roi_align_pl.py:576",
-         "launches": counts["roi_align"],
-         "max_abs_err": roi_res["max_abs_err"], "ms": k_roi, "plain_ms": p_roi},
+        kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
+                     "tpuseg/ops/pallas/nms_pl.py:138", launches("nms"),
+                     nms_res["max_abs_err"],
+                     times["nms B=2 class-aware N=2048"]),
+        kernel_entry("roi_align", "tpuseg_torch/csrc/roi_align.cu",
+                     "tpuseg/ops/pallas/roi_align_pl.py:576",
+                     launches("roi_align"), roi_res["max_abs_err"],
+                     times["roi_align float32 N=2000 P=7"]),
+        kernel_entry("roi_align_bwd", "tpuseg_torch/csrc/roi_align_bwd.cu",
+                     "tpuseg/ops/pallas/roi_align_pl.py:390",
+                     launches("roi_align_bwd"), bwd_res["max_abs_err"],
+                     times["roi_align_bwd float32 N=1024 P=7"]),
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -54,6 +54,22 @@ def test_decode_boxes_matches_jax(rng, k, weights):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("weights", [(1.0, 1.0, 1.0, 1.0),
+                                     (10.0, 10.0, 5.0, 5.0)])
+def test_encode_boxes_matches_jax_and_inverts_decode(rng, weights):
+    anchors = rand_boxes(rng, 64, size=200.0)
+    boxes = rand_boxes(rng, 64, size=200.0)
+    boxes[0] = boxes[0, [2, 3, 0, 1]]  # inverted: extents clamp at 1e-6
+    want = _np(JB.encode_boxes(jnp.asarray(boxes), jnp.asarray(anchors),
+                               weights))
+    got = TB.encode_boxes(torch.from_numpy(boxes), torch.from_numpy(anchors),
+                          weights)
+    # rtol 1e-6: the same float32 formula; atol 1e-5 for log/div rounding
+    np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=1e-5)
+    back = TB.decode_boxes(got[1:], torch.from_numpy(anchors[1:]), weights)
+    np.testing.assert_allclose(_np(back), boxes[1:], rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("n,k", [(50, 20), (12, 20)])
 def test_masked_topk_matches_jax_with_ties(rng, n, k):
     # few distinct values: many ties, which a stable sort must break by

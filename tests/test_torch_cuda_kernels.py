@@ -71,6 +71,68 @@ def test_roi_align_kernel_matches_plain(dtype, p):
     assert torch.equal(got, want)
 
 
+def _assert_bwd_close(got, want_f32, dtype):
+    """f32: atomics add in an order that changes from run to run, so the
+    kernel meets the plain backward to rounding, atol 1e-5 max|ref| and
+    rtol 1e-5. bf16 features: against the plain backward computed in f32,
+    the kernel's one rounding to bf16 (2^-8 |ref|) plus 1e-3."""
+    for g, w in zip(got, want_f32):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-5,
+                                       atol=1e-5 * float(w.abs().max()))
+        else:
+            assert bool(((g.float() - w).abs()
+                         <= 2.0 ** -8 * w.abs() + 1e-3).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+def test_roi_align_backward_kernel_matches_plain(dtype, p):
+    dev = _device()
+    g = torch.Generator().manual_seed(10 + p)
+    shapes = [(2, 64, h, w) for h, w in ((50, 80), (25, 40), (13, 20), (7, 10))]
+    rng = np.random.default_rng(p)
+    boxes = torch.from_numpy(_boxes(rng, (300,))).to(dev)
+    boxes[:5] -= 30.0  # past the top-left border
+    bidx = torch.from_numpy(rng.integers(0, 2, 300)).to(dev)
+    feats = [torch.zeros(sh, device=dev, dtype=dtype) for sh in shapes]
+    levels = sampling.clamp_levels_to_window(feats, boxes, assign_levels(boxes))
+    grad = torch.randn(300, 64, p, p, generator=g).to(dev, dtype)
+    before = kernels.launch_counts()["roi_align_bwd"]
+    got = sampling.multilevel_roi_align_backward(grad, boxes, bidx, levels,
+                                                 shapes, dtype, p, 2)
+    assert kernels.launch_counts()["roi_align_bwd"] == before + 1
+    with kernels.force_plain():
+        want = sampling.multilevel_roi_align_backward(
+            grad.float(), boxes, bidx, levels, shapes, torch.float32, p, 2)
+    _assert_bwd_close(got, want, dtype)
+
+
+def test_pooler_autograd_uses_both_kernels():
+    """The differentiable pooler on channels-last CUDA levels: one forward
+    and one backward launch, and .grad equal to the backward kernel's
+    output for the same d(pooled)."""
+    dev = _device()
+    g = torch.Generator().manual_seed(3)
+    feats = [torch.randn(2, 64, h, w, generator=g).to(dev)
+             .contiguous(memory_format=torch.channels_last).requires_grad_()
+             for h, w in ((50, 80), (25, 40), (13, 20), (7, 10))]
+    rng = np.random.default_rng(3)
+    boxes = torch.from_numpy(_boxes(rng, (200,))).to(dev)
+    bidx = torch.from_numpy(rng.integers(0, 2, 200)).to(dev)
+    levels = sampling.clamp_levels_to_window(feats, boxes, assign_levels(boxes))
+    dp = torch.randn(200, 64, 7, 7, generator=g).to(dev)
+    kernels.reset_launch_counts()
+    out = sampling.multilevel_roi_align(feats, boxes, bidx, levels, 7, 2)
+    (out * dp).sum().backward()
+    assert kernels.launch_counts() == {"nms": 0, "roi_align": 1,
+                                       "roi_align_bwd": 1}
+    want = sampling.multilevel_roi_align_backward(
+        dp, boxes, bidx, levels, [f.shape for f in feats], torch.float32, 7, 2)
+    _assert_bwd_close([f.grad for f in feats], want, torch.float32)
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     dev = _device()
     from tpuseg_torch.kernels.nms import nms_keep_sorted
@@ -88,3 +150,11 @@ def test_kernel_wrappers_reject_bad_inputs():
                              torch.zeros(2, dtype=torch.int32, device=dev),
                              torch.zeros(2, dtype=torch.int32, device=dev),
                              7, 2, (4,))
+    from tpuseg_torch.kernels.roi_align import multilevel_roi_align_backward
+
+    with pytest.raises(ValueError):  # d(pooled) of the wrong shape
+        multilevel_roi_align_backward(
+            torch.zeros(2, 7, 7, 4, device=dev), torch.zeros(2, 4, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev), [(1, 8, 4, 4)],
+            torch.float32, 7, 2, (4,))

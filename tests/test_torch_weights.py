@@ -1,7 +1,11 @@
-"""Weight maps of tpuseg_torch, and the rule that it never imports jax."""
+"""Weight maps of tpuseg_torch, the rule that it imports neither jax nor
+the JAX package, and its entry points' default device."""
+import ast
+import inspect
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,8 +26,11 @@ SLICE_MODULES = [
     "tpuseg_torch.ops.preprocess", "tpuseg_torch.models.maskrcnn",
     "tpuseg_torch.weights.detectron_map", "tpuseg_torch.weights.from_jax",
     "tpuseg_torch.engine.maskrcnn_engine", "tpuseg_torch.engine.predictor",
-    "tpuseg_torch.tools.maskrcnn_infer",
+    "tpuseg_torch.tools.maskrcnn_infer", "tpuseg_torch.data.image_io",
+    "tpuseg_torch.models.maskrcnn_loss", "tpuseg_torch.engine.trainer",
+    "tpuseg_torch.engine.detectron_train_loop",
 ]
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -71,3 +78,35 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _imported_modules(path: Path):
+    """Every module an ``import`` or ``from ... import`` names, at any
+    depth of the file (inside functions too)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
+    files = sorted((ROOT / "tpuseg_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}: {m}" for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("tpuseg", "jax", "jaxlib")]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_card():
+    from tpuseg_torch.engine.detectron_train_loop import do_train
+    from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
+    from tpuseg_torch.engine.predictor import COCODemo
+
+    for fn in (MaskRCNNPredictor.__init__, COCODemo.__init__, do_train):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MaskRCNNPredictor(M.MaskRCNNConfig(num_classes=NC))

@@ -57,6 +57,26 @@ def clip_to_image(boxes: torch.Tensor, height, width) -> torch.Tensor:
                        dim=-1)
 
 
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor,
+                 weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Target ``boxes`` relative to ``anchors`` as (dx, dy, dw, dh):
+    maskrcnn-benchmark BoxCoder.encode, +1 extents. Extents clamp at 1e-6,
+    so a degenerate box sampled as a negative (whose encoding the loss never
+    reads) cannot put an inf into the gradient through a masked row."""
+    wx, wy, ww, wh = weights
+    ex_w = (anchors[..., 2] - anchors[..., 0] + 1.0).clamp(min=1e-6)
+    ex_h = (anchors[..., 3] - anchors[..., 1] + 1.0).clamp(min=1e-6)
+    ex_cx = anchors[..., 0] + 0.5 * ex_w
+    ex_cy = anchors[..., 1] + 0.5 * ex_h
+    gt_w = (boxes[..., 2] - boxes[..., 0] + 1.0).clamp(min=1e-6)
+    gt_h = (boxes[..., 3] - boxes[..., 1] + 1.0).clamp(min=1e-6)
+    gt_cx = boxes[..., 0] + 0.5 * gt_w
+    gt_cy = boxes[..., 1] + 0.5 * gt_h
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w, wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w), wh * torch.log(gt_h / ex_h)],
+                       dim=-1)
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
                  weights=(1.0, 1.0, 1.0, 1.0),
                  clip: float = BBOX_XFORM_CLIP) -> torch.Tensor:

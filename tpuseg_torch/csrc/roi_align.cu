@@ -16,7 +16,9 @@
 // reuse between neighbouring samples.
 //
 // Design: one thread per output element (roi, ph, pw, c) with the channel
-// the fastest index, over channels-last levels. The wrapper
+// the fastest index, over channels-last levels. The geometry (sample
+// points, border rules) lives in roi_align_common.cuh, which the backward
+// kernel (roi_align_bwd.cu) shares. The wrapper
 // (tpuseg_torch/kernels/roi_align.py) hands each level as an NCHW tensor in
 // torch.channels_last memory format, i.e. physically [B, H, W, C], and the
 // output as [N, P, P, C]. So the 32 threads of a warp read 32 consecutive
@@ -34,53 +36,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roi_align_common.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 4;
-
-struct Level {
-  const void* data;
-  int h;
-  int w;
-  float scale;
-};
-
-struct Pyramid {
-  Level lv[kMaxLevels];
-  int num_levels;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// One axis of the bilinear sample: clamped low index, high index and the
-// two weights. Returns false when the sample lies outside [-1, extent].
-struct Axis {
-  int lo, hi;
-  float wlo, whi;
-};
-
-__device__ __forceinline__ bool sample_axis(float t, int extent, Axis* a) {
-  const float ef = (float)extent;
-  if (t < -1.0f || t > ef) return false;
-  const float tc = fminf(fmaxf(t, 0.0f), __fsub_rn(ef, 1.0f));
-  const float t0 = floorf(tc);
-  a->lo = (int)t0;
-  a->hi = min(a->lo + 1, extent - 1);
-  a->whi = __fsub_rn(tc, t0);
-  a->wlo = __fsub_rn(1.0f, a->whi);
-  return true;
-}
+using namespace tpuseg_roi;
 
 template <typename T>
 __global__ void roi_align_kernel(const Pyramid pyr, int batch, int c,
@@ -92,37 +52,24 @@ __global__ void roi_align_kernel(const Pyramid pyr, int batch, int c,
   const float count = (float)(s * s);
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int ch = (int)(idx % c);
-    long long t = idx / c;
-    const int pw = (int)(t % p);
-    t /= p;
-    const int ph = (int)(t % p);
-    const int r = (int)(t / p);
-    // indices come from device memory: clamp so a bad one cannot read
-    // outside the pyramid
-    const int lv = min(max(levels[r], 0), pyr.num_levels - 1);
-    const int bi = min(max(batch_idx[r], 0), batch - 1);
-    const Level L = pyr.lv[lv];
-    const T* f = (const T*)L.data + (size_t)bi * L.h * L.w * c + ch;
-    const float4 box = boxes[r];
-    const float x1 = __fmul_rn(box.x, L.scale);
-    const float y1 = __fmul_rn(box.y, L.scale);
-    const float roi_w = fmaxf(__fsub_rn(__fmul_rn(box.z, L.scale), x1), 1.0f);
-    const float roi_h = fmaxf(__fsub_rn(__fmul_rn(box.w, L.scale), y1), 1.0f);
-    const float bin_w = __fdiv_rn(roi_w, (float)p);
-    const float bin_h = __fdiv_rn(roi_h, (float)p);
+    const Bin b = decode_bin(idx, p, c);
+    const Level L = pyr.lv[roi_level(levels, b.r, pyr)];
+    const T* f = (const T*)L.data +
+                 (size_t)roi_image(batch_idx, b.r, batch) * L.h * L.w * c +
+                 b.ch;
+    const RoiGeom geo = roi_geometry(boxes[b.r], L.scale, p);
     float acc = 0.0f;
     for (int iy = 0; iy < s; ++iy) {
-      const float gy = __fdiv_rn(__fadd_rn((float)(ph * s + iy), 0.5f), (float)s);
       Axis ay;
-      if (!sample_axis(__fadd_rn(y1, __fmul_rn(gy, bin_h)), L.h, &ay)) continue;
+      if (!sample_axis(sample_coord(geo.y1, geo.bin_h, b.ph, iy, s), L.h, &ay))
+        continue;
       const T* row_lo = f + (size_t)ay.lo * L.w * c;
       const T* row_hi = f + (size_t)ay.hi * L.w * c;
       for (int ix = 0; ix < s; ++ix) {
-        const float gx =
-            __fdiv_rn(__fadd_rn((float)(pw * s + ix), 0.5f), (float)s);
         Axis ax;
-        if (!sample_axis(__fadd_rn(x1, __fmul_rn(gx, bin_w)), L.w, &ax)) continue;
+        if (!sample_axis(sample_coord(geo.x1, geo.bin_w, b.pw, ix, s), L.w,
+                         &ax))
+          continue;
         const float v00 = to_f32(row_lo[(size_t)ax.lo * c]);
         const float v01 = to_f32(row_lo[(size_t)ax.hi * c]);
         const float v10 = to_f32(row_hi[(size_t)ax.lo * c]);
@@ -144,23 +91,13 @@ int launch(const void* data, const void* heights, const void* widths,
            const void* scales, int num_levels, int batch, int c,
            const void* boxes, const void* batch_idx, const void* levels, int n,
            int p, int s, void* out, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels) {
-    return (int)cudaErrorInvalidValue;
-  }
   Pyramid pyr;
-  pyr.num_levels = num_levels;
-  for (int i = 0; i < kMaxLevels; ++i) {
-    const int j = i < num_levels ? i : num_levels - 1;
-    pyr.lv[i].data = ((const void* const*)data)[j];
-    pyr.lv[i].h = ((const int*)heights)[j];
-    pyr.lv[i].w = ((const int*)widths)[j];
-    pyr.lv[i].scale = ((const float*)scales)[j];
-  }
-  const long long total = (long long)n * p * p * c;
+  const int status =
+      make_pyramid(data, heights, widths, scales, num_levels, &pyr);
+  if (status != 0) return status;
   const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  roi_align_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  roi_align_kernel<T><<<grid_blocks((long long)n * p * p * c, threads),
+                        threads, 0, (cudaStream_t)stream>>>(
       pyr, batch, c, (const float4*)boxes, (const int*)batch_idx,
       (const int*)levels, n, p, s, (T*)out);
   return (int)cudaGetLastError();

@@ -90,7 +90,7 @@ class MaskRCNNPredictor:
     def __init__(self, cfg: M.MaskRCNNConfig | None = None,
                  weights: str | None = None, model: M.MaskRCNN | None = None,
                  confidence_threshold: float = 0.5, min_image_size: int = 800,
-                 max_image_size: int = 1333, device="cpu", seed: int = 0):
+                 max_image_size: int = 1333, device="cuda", seed: int = 0):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is unavailable")

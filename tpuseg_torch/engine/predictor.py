@@ -60,7 +60,7 @@ def model_config_from_node(node) -> MaskRCNNConfig:
 class COCODemo:
     def __init__(self, cfg=None, min_image_size: int | None = None,
                  confidence_threshold: float = 0.7, weights: str | None = None,
-                 device="cpu"):
+                 device="cuda"):
         """``cfg``: None (R-50-FPN defaults) or a ConfigNode, whose
         MODEL.WEIGHT and INPUT sizes are honoured unless overridden."""
         model_cfg, max_size = None, 1333

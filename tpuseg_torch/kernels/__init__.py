@@ -28,10 +28,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("nms.cu", "roi_align.cu")
+SOURCES = ("nms.cu", "roi_align.cu", "roi_align_bwd.cu")
+HEADERS = ("roi_align_common.cuh",)  # hashed with the sources
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
@@ -44,9 +45,15 @@ _SIGNATURES = {
                              _I, _P, _P],
     "tpuseg_roi_align_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
                               _I, _P, _P],
+    # as the forward, with grad ptrs[L] (f32, added into) first and the
+    # pooled gradient in place of out
+    "tpuseg_roi_align_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+                                 _I, _I, _P, _P],
+    "tpuseg_roi_align_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+                                  _I, _I, _P, _P],
 }
 
-LAUNCHES = {"nms": 0, "roi_align": 0}
+LAUNCHES = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0}
 
 _state = {"lib": None, "force_plain": False}
 
@@ -92,9 +99,10 @@ def find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels (once per source hash); returns the library path."""
+    """Compile the kernels (once per source hash), one nvcc per source, all
+    started together, then link them; returns the library path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -102,15 +110,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp.{os.getpid()}.so"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, pid = find_nvcc(), os.getpid()
+    objs = [out_dir / f"{name}.{pid}.o" for name in SOURCES]
+    steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / name)]
+             for name, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    results = [(cmd, p.communicate()[0], p.returncode)
+               for cmd, p in zip(steps, procs)]
+    tmp = out_dir / f".tmp.{pid}.so"
+    if all(rc == 0 for _, _, rc in results):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.stdout + proc.stderr, proc.returncode))
+    (out_dir / "build.log").write_text("".join(
+        " ".join(cmd) + "\n" + out for cmd, out, _ in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, out, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(cmd[-3:])}: nvcc failed with code "
+                               f"{rc}:\n{out[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

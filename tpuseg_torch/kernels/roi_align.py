@@ -1,5 +1,5 @@
-"""ctypes binding of the multi-level RoIAlign forward kernel
-(``csrc/roi_align.cu``)."""
+"""ctypes bindings of the multi-level RoIAlign forward kernel
+(``csrc/roi_align.cu``) and its backward (``csrc/roi_align_bwd.cu``)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,6 +10,46 @@ from tpuseg_torch import kernels as K
 
 _ENTRY = {torch.float32: "tpuseg_roi_align_f32",
           torch.bfloat16: "tpuseg_roi_align_bf16"}
+_ENTRY_BWD = {torch.float32: "tpuseg_roi_align_bwd_f32",
+              torch.bfloat16: "tpuseg_roi_align_bwd_bf16"}
+
+
+def _check_rois(boxes, batch_idx, levels, dev) -> int:
+    K.check_tensor(boxes, "boxes", device=dev, dtypes=(torch.float32,),
+                   ndim=2, align=16)
+    K.check_tensor(batch_idx, "batch_idx", device=dev, dtypes=(torch.int32,),
+                   ndim=1)
+    K.check_tensor(levels, "levels", device=dev, dtypes=(torch.int32,), ndim=1)
+    n = boxes.shape[0]
+    if boxes.shape[1] != 4 or batch_idx.shape[0] != n or levels.shape[0] != n:
+        raise ValueError(f"roi_align kernel: boxes {tuple(boxes.shape)}, "
+                         f"batch_idx {tuple(batch_idx.shape)}, levels "
+                         f"{tuple(levels.shape)}")
+    return n
+
+
+def _pyramid_args(ptrs, level_hw, strides) -> tuple:
+    """Host arrays of the C entry points: level pointers, heights, widths,
+    scales (kept alive by the caller while the launch is issued)."""
+    nl = len(ptrs)
+    if not 1 <= nl <= 4 or len(strides) != nl:
+        raise ValueError(f"roi_align kernel: {nl} levels, {len(strides)} "
+                         "strides (1 to 4 levels)")
+    return ((ctypes.c_void_p * nl)(*ptrs),
+            (ctypes.c_int * nl)(*(h for h, _ in level_hw)),
+            (ctypes.c_int * nl)(*(w for _, w in level_hw)),
+            (ctypes.c_float * nl)(*(1.0 / st for st in strides)))
+
+
+def _launch(entry, arrays, b, c, boxes, batch_idx, levels, n, p, s, tensor,
+            dev) -> None:
+    fn = getattr(K.library(), entry)
+    with torch.cuda.device(dev):
+        status = fn(*(ctypes.addressof(a) for a in arrays), len(arrays[0]),
+                    b, c, boxes.data_ptr(), batch_idx.data_ptr(),
+                    levels.data_ptr(), n, p, s, tensor.data_ptr(),
+                    K.stream_ptr(dev))
+    K.check_status(status, entry)
 
 
 def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
@@ -22,9 +62,6 @@ def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
     dev = f0.device
     if dev.type != "cuda":
         raise ValueError(f"roi_align kernel: features on {dev}, expected CUDA")
-    if not 1 <= len(feats) <= 4 or len(strides) != len(feats):
-        raise ValueError(f"roi_align kernel: {len(feats)} levels, "
-                         f"{len(strides)} strides (1 to 4 levels)")
     for i, f in enumerate(feats):
         K.check_tensor(f, f"feats[{i}]", device=dev, dtypes=tuple(_ENTRY),
                        ndim=4, channels_last=True)
@@ -32,33 +69,48 @@ def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
             raise ValueError(f"roi_align kernel: level {i} is {f.dtype} "
                              f"{tuple(f.shape)}, level 0 {f0.dtype} "
                              f"{tuple(f0.shape)}")
-    K.check_tensor(boxes, "boxes", device=dev, dtypes=(torch.float32,),
-                   ndim=2, align=16)
-    K.check_tensor(batch_idx, "batch_idx", device=dev, dtypes=(torch.int32,),
-                   ndim=1)
-    K.check_tensor(levels, "levels", device=dev, dtypes=(torch.int32,), ndim=1)
-    n = boxes.shape[0]
-    if boxes.shape[1] != 4 or batch_idx.shape[0] != n or levels.shape[0] != n:
-        raise ValueError(f"roi_align kernel: boxes {tuple(boxes.shape)}, "
-                         f"batch_idx {tuple(batch_idx.shape)}, levels "
-                         f"{tuple(levels.shape)}")
+    n = _check_rois(boxes, batch_idx, levels, dev)
+    arrays = _pyramid_args([f.data_ptr() for f in feats],
+                           [tuple(f.shape[2:]) for f in feats], strides)
     b, c = f0.shape[:2]
     p, s = output_size, sampling_ratio
     out = torch.empty((n, p, p, c), dtype=f0.dtype, device=dev)
-    if n == 0:
-        return out.permute(0, 3, 1, 2)
-    nl = len(feats)
-    data = (ctypes.c_void_p * nl)(*(f.data_ptr() for f in feats))
-    heights = (ctypes.c_int * nl)(*(f.shape[2] for f in feats))
-    widths = (ctypes.c_int * nl)(*(f.shape[3] for f in feats))
-    scales = (ctypes.c_float * nl)(*(1.0 / st for st in strides))
-    fn = getattr(K.library(), _ENTRY[f0.dtype])
-    with torch.cuda.device(dev):
-        status = fn(ctypes.addressof(data), ctypes.addressof(heights),
-                    ctypes.addressof(widths), ctypes.addressof(scales), nl, b,
-                    c, boxes.data_ptr(), batch_idx.data_ptr(),
-                    levels.data_ptr(), n, p, s, out.data_ptr(),
-                    K.stream_ptr(dev))
-    K.check_status(status, "roi_align kernel")
-    K.LAUNCHES["roi_align"] += 1
+    if n:
+        _launch(_ENTRY[f0.dtype], arrays, b, c, boxes, batch_idx, levels, n,
+                p, s, out, dev)
+        K.LAUNCHES["roi_align"] += 1
     return out.permute(0, 3, 1, 2)
+
+
+def multilevel_roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
+                                  batch_idx: torch.Tensor,
+                                  levels: torch.Tensor, feat_shapes,
+                                  dtype: torch.dtype, output_size: int,
+                                  sampling_ratio: int, strides) -> tuple:
+    """grad: d(pooled) [N, P, P, C] contiguous (channels-last pooled
+    layout), f32 or bf16; ``feat_shapes`` the levels' [B, C, H_l, W_l];
+    boxes, batch_idx, levels as the forward. -> per-level d(feats)
+    [B, C, H_l, W_l] in ``dtype`` (channels-last storage), accumulated in
+    zeroed f32 buffers and cast once."""
+    dev = grad.device
+    if dev.type != "cuda":
+        raise ValueError(f"roi_align_bwd kernel: grad on {dev}, expected CUDA")
+    K.check_tensor(grad, "grad", device=dev, dtypes=tuple(_ENTRY_BWD), ndim=4)
+    if dtype not in _ENTRY:
+        raise ValueError(f"roi_align_bwd kernel: feature dtype {dtype}")
+    n = _check_rois(boxes, batch_idx, levels, dev)
+    b, c = feat_shapes[0][:2]
+    p, s = output_size, sampling_ratio
+    if grad.shape != (n, p, p, c) or any(tuple(sh[:2]) != (b, c)
+                                         for sh in feat_shapes):
+        raise ValueError(f"roi_align_bwd kernel: grad {tuple(grad.shape)}, "
+                         f"levels {[tuple(sh) for sh in feat_shapes]}")
+    acc = [torch.zeros((b, sh[2], sh[3], c), dtype=torch.float32, device=dev)
+           for sh in feat_shapes]
+    arrays = _pyramid_args([a.data_ptr() for a in acc],
+                           [tuple(sh[2:]) for sh in feat_shapes], strides)
+    if n:
+        _launch(_ENTRY_BWD[grad.dtype], arrays, b, c, boxes, batch_idx,
+                levels, n, p, s, grad, dev)
+        K.LAUNCHES["roi_align_bwd"] += 1
+    return tuple(a.permute(0, 3, 1, 2).to(dtype) for a in acc)

@@ -1,4 +1,5 @@
-"""Mask R-CNN R-50-FPN inference (port of ``tpuseg/models/maskrcnn.py``).
+"""Mask R-CNN R-50-FPN inference and training forward (port of
+``tpuseg/models/maskrcnn.py``).
 
 ResNet-50 FrozenBN body -> FPN (P2..P6) -> RPN (per-level top-1000, NMS
 0.7, top-1000 over levels) -> 7x7 RoIAlign box head (2 FC -> 81-way scores
@@ -15,7 +16,7 @@ outside an image's real extent are masked out.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuseg_torch.core import boxes as box_ops
+from tpuseg_torch.models import maskrcnn_loss as ML
 from tpuseg_torch.nn.fpn import FPN, Backbone
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.nn.resnet import ResNet
@@ -32,7 +34,8 @@ from tpuseg_torch.ops import sampling
 
 @dataclass(frozen=True)
 class MaskRCNNConfig:
-    """Inference fields of the JAX ``MaskRCNNConfig`` (same defaults)."""
+    """The JAX ``MaskRCNNConfig``'s fields for the FPN Mask R-CNN (same
+    defaults)."""
     depth: int = 50
     freeze_at: int = 2
     anchor_sizes: tuple = (32, 64, 128, 256, 512)
@@ -42,6 +45,12 @@ class MaskRCNNConfig:
     rpn_post_nms_top_n: int = 1000
     rpn_nms_thresh: float = 0.7
     fpn_post_nms_top_n: int = 1000
+    # train-time proposal budget (maskrcnn-benchmark *_TRAIN knobs)
+    rpn_pre_nms_top_n_train: int = 2000
+    fpn_post_nms_top_n_train: int = 2000
+    # FPN_POST_NMS_PER_BATCH (upstream's training default): the post-NMS
+    # top-n over the whole batch, not per image; forward_train_losses sets it
+    fpn_post_nms_per_batch: bool = False
     num_classes: int = 81
     pooler_resolution: int = 7
     pooler_sampling_ratio: int = 2
@@ -294,7 +303,9 @@ def rpn_proposals(logits: list, deltas: list, anchors, image_hw: torch.Tensor,
 
     Per level: masked top-k of the objectness logits (k = min(1000, n): P6
     at 800x1344 has only 819 anchors), decode, clip, NMS 0.7 with +1
-    extents; then the top P survivors over all levels. Upstream's
+    extents; then the top P survivors over all levels (with
+    ``fpn_post_nms_per_batch``, only those at or above the batch-wide P-th
+    score, upstream's select_over_all_levels in training). Upstream's
     remove_small_boxes keeps every box at its MIN_SIZE of 0, so it is not
     ported.
     """
@@ -316,9 +327,16 @@ def rpn_proposals(logits: list, deltas: list, anchors, image_hw: torch.Tensor,
         lvl_scores.append(torch.where(keep, scores, torch.zeros_like(scores)))
         lvl_valid.append(keep)
     all_boxes = torch.cat(lvl_boxes, 1)
-    top_s, idx, valid = box_ops.masked_topk(
-        torch.cat(lvl_scores, 1), torch.cat(lvl_valid, 1),
-        cfg.fpn_post_nms_top_n)
+    all_scores = torch.cat(lvl_scores, 1)
+    all_valid = torch.cat(lvl_valid, 1)
+    if cfg.fpn_post_nms_per_batch:
+        # a batch-wide gate at the k-th score keeps the padded [B, P] shape;
+        # the per-image top-k below then passes all that survive it
+        k = min(cfg.fpn_post_nms_top_n, all_scores.numel())
+        flat = all_scores.masked_fill(~all_valid, float("-inf")).reshape(-1)
+        all_valid = all_valid & (all_scores >= torch.topk(flat, k).values[-1])
+    top_s, idx, valid = box_ops.masked_topk(all_scores, all_valid,
+                                            cfg.fpn_post_nms_top_n)
     return box_ops.gather_along_n(all_boxes, idx), top_s, valid
 
 
@@ -424,3 +442,108 @@ def forward_inference(model: MaskRCNN, images: torch.Tensor,
     [B, 2] int real sizes -> dict of padded detections (see module doc)."""
     pyramid = model.backbone(images)
     return forward_heads(model, pyramid, image_hw, tuple(images.shape[-2:]))
+
+
+# ---------------------------------------------------------------------------
+# Training forward (GeneralizedRCNN.forward with targets)
+# ---------------------------------------------------------------------------
+
+
+def _uniform_pairs(b: int, n: int, generator, dev) -> list:
+    return [(torch.rand(n, generator=generator, device=dev),
+             torch.rand(n, generator=generator, device=dev)) for _ in range(b)]
+
+
+def forward_train_losses(model: MaskRCNN, images: torch.Tensor,
+                         image_hw: torch.Tensor, targets: dict,
+                         generator: torch.Generator | None = None,
+                         draws: dict | None = None, loss_cfg=None) -> dict:
+    """One training forward -> the reference's five losses and ``total``
+    (port of ``tpuseg/models/maskrcnn.py::forward_train_losses``).
+
+    images [B, 3, Hc, Wc] on the canvas, image_hw [B, 2] real sizes;
+    targets: ``boxes`` [B, G, 4] canvas coordinates, ``classes`` [B, G]
+    (0-based, -1 pads), ``mask_crops`` [B, G, R, R] float gt masks over
+    their boxes. The samplers' uniform draws come from ``draws`` if given,
+    ``{"rpn": [(pos, neg)] * B, "roi": [(pos, neg)] * B}`` with vectors of
+    the number of anchors and of proposals + G, else from ``generator`` (on
+    the images' device; None = its default generator), RPN then RoI, per
+    image positives then negatives.
+
+    The RPN outputs are detached before proposal generation, which runs
+    without autograd (upstream passes them ``.detach()``-ed); proposals use
+    the train budgets and the batch-wide top-n. 512 rois per image feed the
+    box head; only the first 128 sampled slots, which hold every positive,
+    feed the mask head.
+    """
+    cfg = model.cfg
+    if loss_cfg is None:
+        loss_cfg = ML.MaskRCNNLossConfig(num_classes=cfg.num_classes)
+    b = images.shape[0]
+    canvas = tuple(images.shape[-2:])
+    dev = images.device
+    pyramid = model.backbone(images)
+    logits, deltas = model.rpn.head(pyramid)
+    anchors_l = _anchors_on(cfg, canvas[0], canvas[1], dev)
+    anchors = torch.cat(anchors_l)
+    gt_boxes, gt_classes = targets["boxes"], targets["classes"]
+    gt_valid = gt_classes >= 0
+    inside = []
+    for li, an in enumerate(anchors_l):
+        stride = cfg.anchor_stride[li]
+        hl, wl = fpn_level_hw(canvas[0], canvas[1], stride)
+        inside.append(anchor_inside_mask(image_hw, stride, hl, wl,
+                                         an.shape[0] // (hl * wl)))
+    rpn_draws = (draws["rpn"] if draws is not None else
+                 _uniform_pairs(b, anchors.shape[0], generator, dev))
+    losses = ML.rpn_loss(torch.cat([lg.float() for lg in logits], 1),
+                         torch.cat([dl.float() for dl in deltas], 1), anchors,
+                         gt_boxes, gt_valid, rpn_draws, loss_cfg,
+                         image_hw=image_hw, anchor_inside=torch.cat(inside, 1))
+
+    train_cfg = replace(cfg, rpn_pre_nms_top_n=cfg.rpn_pre_nms_top_n_train,
+                        fpn_post_nms_top_n=cfg.fpn_post_nms_top_n_train,
+                        fpn_post_nms_per_batch=True)
+    with torch.no_grad():
+        proposals, _, p_valid = rpn_proposals(
+            [lg.detach() for lg in logits], [dl.detach() for dl in deltas],
+            anchors_l, image_hw, train_cfg, canvas)
+    roi_draws = (draws["roi"] if draws is not None else _uniform_pairs(
+        b, proposals.shape[1] + gt_boxes.shape[1], generator, dev))
+    per_image = [ML.sample_proposals(proposals[i], p_valid[i], gt_boxes[i],
+                                     gt_classes[i], gt_valid[i],
+                                     *roi_draws[i], loss_cfg)
+                 for i in range(b)]
+    sample = {k: torch.stack([s_[k] for s_ in per_image]) for k in per_image[0]}
+
+    # both poolers read P2..P5; one layout change serves both, and its
+    # backward sums their gradients
+    feats = [f.contiguous(memory_format=torch.channels_last)
+             for f in pyramid[:4]]
+    s = sample["boxes"].shape[1]
+    pooled = pooled_roi_features(
+        feats, sample["boxes"].reshape(b * s, 4),
+        torch.arange(b, device=dev).repeat_interleave(s),
+        cfg.pooler_resolution, cfg.pooler_sampling_ratio)
+    cls_logits, box_deltas = model.roi_heads.box(pooled)
+    flat = {k: v.reshape((b * s,) + v.shape[2:]) for k, v in sample.items()}
+    losses.update(ML.box_head_loss(cls_logits.float(), box_deltas.float(),
+                                   flat, loss_cfg))
+
+    m = int(loss_cfg.roi_batch_per_image * loss_cfg.roi_pos_fraction)
+    mask_boxes = sample["boxes"][:, :m]
+    mask_pooled = pooled_roi_features(
+        feats, mask_boxes.reshape(b * m, 4),
+        torch.arange(b, device=dev).repeat_interleave(m),
+        cfg.mask_resolution, cfg.pooler_sampling_ratio)
+    msample = {k: v[:, :m].reshape((b * m,) + v.shape[2:])
+               for k, v in sample.items()}
+    mask_x = model.roi_heads.mask(mask_pooled, msample["cls_target"])
+    t28 = torch.stack([ML.mask_targets_from_crops(
+        mask_boxes[i], sample["gt_idx"][i, :m], gt_boxes[i],
+        targets["mask_crops"][i], cfg.mask_out) for i in range(b)])
+    losses.update(ML.mask_head_loss_selected(
+        mask_x.float(), msample, t28.reshape(b * m, cfg.mask_out, cfg.mask_out),
+        loss_cfg))
+    losses["total"] = sum(losses.values())
+    return losses

@@ -59,8 +59,12 @@ class ResNet(nn.Module):
 
     ``width`` is the stem width (64 for R-50); stage ``i`` has
     ``width * 2**i`` bottleneck channels and four times that at its output.
-    ``freeze_at`` is kept for the config's sake: at inference every weight
-    is frozen, so it changes nothing here.
+    ``freeze_at`` (detectron FREEZE_CONV_BODY_AT) freezes the stem
+    (``freeze_at >= 1``) and ``layer1`` .. ``layer{freeze_at - 1}``: their
+    parameters get ``requires_grad=False``, so no gradient reaches them, as
+    the JAX ``stop_gradient`` after each frozen stage does
+    (``tpuseg/nn/resnet.py:103,128``). The FrozenBN tensors are buffers and
+    never train.
     """
 
     def __init__(self, depth: int = 50, width: int = 64, freeze_at: int = 2):
@@ -78,6 +82,10 @@ class ResNet(nn.Module):
             self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
             cin = cout
         self.out_channels = tuple(width * 2 ** si * 4 for si in range(4))
+        frozen = ([self.stem] if freeze_at >= 1 else []) + [
+            getattr(self, f"layer{si + 1}") for si in range(min(freeze_at - 1, 4))]
+        for m in frozen:
+            m.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> list:
         x = self.stem(x)

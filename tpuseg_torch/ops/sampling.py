@@ -4,11 +4,17 @@ clamp_levels_to_window``).
 
 Features are NCHW, as everywhere in the port; pooled outputs are
 [N, C, P, P], the layout upstream's box and mask heads consume.
-:func:`multilevel_roi_align` dispatches: the CUDA kernel
-(``csrc/roi_align.cu``) for CUDA tensors, :func:`multilevel_roi_align_plain`
-for CPU tensors (see :mod:`tpuseg_torch.kernels`).
+:func:`multilevel_roi_align` is differentiable in the features and
+dispatches: the CUDA kernels (``csrc/roi_align.cu`` forward,
+``csrc/roi_align_bwd.cu`` backward) for CUDA tensors, their plain versions
+(:func:`multilevel_roi_align_plain`,
+:func:`multilevel_roi_align_backward_plain`) for CPU tensors (see
+:mod:`tpuseg_torch.kernels`). :func:`roi_align` is the single-level pooler
+the mask targets use, plain torch.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -78,39 +84,40 @@ def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def multilevel_roi_align_plain(feats, boxes: torch.Tensor,
-                               batch_idx: torch.Tensor, levels: torch.Tensor,
-                               output_size: int = 7, sampling_ratio: int = 2,
-                               strides=(4, 8, 16, 32)) -> torch.Tensor:
-    """Plain RoIAlign: each box pooled from its level, ROIAlign_cuda border
-    rules, aligned=False, roi w/h >= 1, the mean of S x S samples per bin.
-    One gather from the concatenated pyramid, _CHUNK rois at a time;
-    sums in f32, the output in the feature dtype. -> [N, C, P, P].
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Sums run in f32 for f32 and bf16 features (f64 for f64 ones)."""
+    return torch.promote_types(dtype, torch.float32)
 
-    The sums run in a fixed order, which the kernel repeats: each sample
-    is ((w00 v00 + w01 v01) + w10 v10) + w11 v11, the samples of a bin are
-    added in (iy, ix) order and divided by S*S once.
-    """
-    b, c = feats[0].shape[:2]
-    n = boxes.shape[0]
-    p, s = output_size, sampling_ratio
+
+class _Lattice(NamedTuple):
+    """Per-roi sample lattice over a flattened feature map: the roi's map
+    extent ``h``, ``w`` (float, [N]), its first row ``base`` in the
+    flattened map ([N] long) and the sample coordinates ``ys``, ``xs``
+    ([N, P*S], feature units)."""
+    h: torch.Tensor
+    w: torch.Tensor
+    base: torch.Tensor
+    ys: torch.Tensor
+    xs: torch.Tensor
+
+
+def _pyramid_lattice(level_hw, boxes: torch.Tensor, batch_idx: torch.Tensor,
+                     levels: torch.Tensor, p: int, s: int, strides):
+    """The forward's geometry, shared with its transpose: each box scaled to
+    its level, roi w/h >= 1, S x S samples per bin at (i + 0.5) / S of the
+    bin. -> (lattice over the [B * sum(H_l W_l), C] flattened pyramid,
+    per-level row offsets, rows per image)."""
     dev, dt = boxes.device, boxes.dtype
-    shapes = [(f.shape[2], f.shape[3]) for f in feats]
-    flat = torch.cat([f.permute(0, 2, 3, 1).reshape(b, -1, c) for f in feats],
-                     dim=1)  # [B, sum(H_l*W_l), C]
-    total = flat.shape[1]
-    flat = flat.reshape(b * total, c)
-    offs, acc = [], 0
-    for h, w in shapes:
-        offs.append(acc)
-        acc += h * w
+    offs, total = [], 0
+    for h, w in level_hw:
+        offs.append(total)
+        total += h * w
     lv = levels.long()
-    lvl_h = torch.tensor([h for h, _ in shapes], dtype=dt, device=dev)[lv]
-    lvl_w = torch.tensor([w for _, w in shapes], dtype=dt, device=dev)[lv]
+    lvl_h = torch.tensor([h for h, _ in level_hw], dtype=dt, device=dev)[lv]
+    lvl_w = torch.tensor([w for _, w in level_hw], dtype=dt, device=dev)[lv]
     lvl_off = torch.tensor(offs, dtype=torch.long, device=dev)[lv]
     lvl_scale = torch.tensor([1.0 / st for st in strides], dtype=dt,
                              device=dev)[lv]
-
     x1 = boxes[:, 0] * lvl_scale
     y1 = boxes[:, 1] * lvl_scale
     roi_w = (boxes[:, 2] * lvl_scale - x1).clamp(min=1.0)
@@ -119,42 +126,181 @@ def multilevel_roi_align_plain(feats, boxes: torch.Tensor,
     ys = y1[:, None] + grid[None, :] * _true_div(roi_h, p)[:, None]  # [N, PS]
     xs = x1[:, None] + grid[None, :] * _true_div(roi_w, p)[:, None]
     base = batch_idx.long() * total + lvl_off
+    return _Lattice(lvl_h, lvl_w, base, ys, xs), offs, total
 
+
+def _corners(lat: _Lattice, sl: slice):
+    """Bilinear corners of the [n, PS, PS] samples of rois ``sl``: rows
+    ``idx4`` [n, PS, PS, 4] of the flattened map and weights ``w4``
+    (ROIAlign_cuda border rules: a sample outside [-1, H] x [-1, W] weighs
+    0, the rest clamp to the map; corners in the order 00, 01, 10, 11)."""
+    ys, xs = lat.ys[sl], lat.xs[sl]
+    ps = ys.shape[1]
+    yy = ys[:, :, None].expand(-1, ps, ps)
+    xx = xs[:, None, :].expand(-1, ps, ps)
+    h3 = lat.h[sl, None, None]
+    w3 = lat.w[sl, None, None]
+    oob = (yy < -1.0) | (yy > h3) | (xx < -1.0) | (xx > w3)
+    y = torch.minimum(yy.clamp(min=0.0), h3 - 1)
+    x = torch.minimum(xx.clamp(min=0.0), w3 - 1)
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    y1i = torch.minimum(y0 + 1, h3 - 1)
+    x1i = torch.minimum(x0 + 1, w3 - 1)
+    ly = y - y0
+    lx = x - x0
+    hy = 1.0 - ly
+    hx = 1.0 - lx
+    w4 = torch.stack([hy * hx, hy * lx, ly * hx, ly * lx], dim=-1)
+    w4 = torch.where(oob[..., None], torch.zeros_like(w4), w4)
+    yi = torch.stack([y0, y0, y1i, y1i], dim=-1).long()
+    xi = torch.stack([x0, x1i, x0, x1i], dim=-1).long()
+    idx4 = lat.base[sl, None, None, None] + yi * w3.long()[..., None] + xi
+    return idx4, w4
+
+
+def _pool(flat: torch.Tensor, lat: _Lattice, p: int, s: int,
+          out_dtype: torch.dtype) -> torch.Tensor:
+    """Mean of the S x S bilinear samples of each bin, _CHUNK rois at a time
+    -> [N, C, P, P]. Each sample is ((w00 v00 + w01 v01) + w10 v10) + w11
+    v11, the samples of a bin are added in (iy, ix) order and divided by
+    S*S once: the order the forward kernel repeats."""
+    c = flat.shape[1]
+    acc_dt = _acc_dtype(flat.dtype)
     out = []
-    for i in range(0, n, _CHUNK):
-        sl = slice(i, i + _CHUNK)
-        yy = ys[sl, :, None].expand(-1, p * s, p * s)
-        xx = xs[sl, None, :].expand(-1, p * s, p * s)
-        h3 = lvl_h[sl, None, None]
-        w3 = lvl_w[sl, None, None]
-        oob = (yy < -1.0) | (yy > h3) | (xx < -1.0) | (xx > w3)
-        y = torch.minimum(yy.clamp(min=0.0), h3 - 1)
-        x = torch.minimum(xx.clamp(min=0.0), w3 - 1)
-        y0 = torch.floor(y)
-        x0 = torch.floor(x)
-        y1i = torch.minimum(y0 + 1, h3 - 1)
-        x1i = torch.minimum(x0 + 1, w3 - 1)
-        ly = y - y0
-        lx = x - x0
-        hy = 1.0 - ly
-        hx = 1.0 - lx
-        w4 = torch.stack([hy * hx, hy * lx, ly * hx, ly * lx], dim=-1)
-        w4 = torch.where(oob[..., None], torch.zeros_like(w4), w4)
-        yi = torch.stack([y0, y0, y1i, y1i], dim=-1).long()
-        xi = torch.stack([x0, x1i, x0, x1i], dim=-1).long()
-        idx4 = base[sl, None, None, None] + yi * w3.long()[..., None] + xi
-        prod = flat[idx4].float() * w4[..., None].float()  # [n, PS, PS, 4, C]
+    for i in range(0, lat.base.shape[0], _CHUNK):
+        idx4, w4 = _corners(lat, slice(i, i + _CHUNK))
+        prod = flat[idx4].to(acc_dt) * w4[..., None].to(acc_dt)  # [n,PS,PS,4,C]
         val = ((prod[..., 0, :] + prod[..., 1, :]) + prod[..., 2, :]
                + prod[..., 3, :])
-        nc = val.shape[0]
-        val = val.reshape(nc, p, s, p, s, c)
+        val = val.reshape(val.shape[0], p, s, p, s, c)
         acc = val[:, :, 0, :, 0]
         for k in range(1, s * s):
             acc = acc + val[:, :, k // s, :, k % s]
-        out.append(_true_div(acc, s * s).to(feats[0].dtype))
+        out.append(_true_div(acc, s * s).to(out_dtype))
     if not out:
-        return flat.new_zeros((0, c, p, p))
+        return flat.new_zeros((0, c, p, p), dtype=out_dtype)
     return torch.cat(out).permute(0, 3, 1, 2)
+
+
+def multilevel_roi_align_plain(feats, boxes: torch.Tensor,
+                               batch_idx: torch.Tensor, levels: torch.Tensor,
+                               output_size: int = 7, sampling_ratio: int = 2,
+                               strides=(4, 8, 16, 32)) -> torch.Tensor:
+    """Plain RoIAlign: each box pooled from its level, ROIAlign_cuda border
+    rules, aligned=False, roi w/h >= 1, the mean of S x S samples per bin,
+    from one gather over the concatenated pyramid; sums in f32, the output
+    in the feature dtype. -> [N, C, P, P]."""
+    b, c = feats[0].shape[:2]
+    flat = torch.cat([f.permute(0, 2, 3, 1).reshape(b, -1, c) for f in feats],
+                     dim=1).reshape(-1, c)  # [B * sum(H_l*W_l), C]
+    lat, _, _ = _pyramid_lattice([(f.shape[2], f.shape[3]) for f in feats],
+                                 boxes, batch_idx, levels, output_size,
+                                 sampling_ratio, strides)
+    return _pool(flat, lat, output_size, sampling_ratio, feats[0].dtype)
+
+
+def multilevel_roi_align_backward_plain(grad_pooled: torch.Tensor,
+                                        boxes: torch.Tensor,
+                                        batch_idx: torch.Tensor,
+                                        levels: torch.Tensor, feat_shapes,
+                                        dtype: torch.dtype,
+                                        output_size: int = 7,
+                                        sampling_ratio: int = 2,
+                                        strides=(4, 8, 16, 32)) -> tuple:
+    """Plain transpose of :func:`multilevel_roi_align_plain` (the plain
+    version of the backward kernel, ``csrc/roi_align_bwd.cu``).
+
+    grad_pooled [N, C, P, P]; ``feat_shapes`` the levels' [B, C, H_l, W_l];
+    -> per-level d(feats) in ``dtype``. Each sample adds
+    ``grad / (S*S) * w`` into each of its four corners, by an explicit
+    ``index_add_`` into the flattened f32 pyramid, rois in order; the sum is
+    cast to ``dtype`` once at the end. Boxes get no gradient.
+    """
+    b, c = feat_shapes[0][:2]
+    p, s = output_size, sampling_ratio
+    level_hw = [(sh[2], sh[3]) for sh in feat_shapes]
+    lat, offs, total = _pyramid_lattice(level_hw, boxes, batch_idx, levels,
+                                        p, s, strides)
+    acc_dt = _acc_dtype(dtype)
+    out = torch.zeros((b * total, c), dtype=acc_dt, device=grad_pooled.device)
+    # each sample's share of its bin, [N, P, P, C]
+    share = _true_div(grad_pooled.to(acc_dt), s * s).permute(0, 2, 3, 1)
+    for i in range(0, lat.base.shape[0], _CHUNK):
+        sl = slice(i, i + _CHUNK)
+        idx4, w4 = _corners(lat, sl)
+        n = idx4.shape[0]
+        g = share[sl][:, :, None, :, None, :].expand(n, p, s, p, s, c)
+        contrib = (g.reshape(n, p * s, p * s, 1, c)
+                   * w4[..., None].to(acc_dt))  # [n, PS, PS, 4, C]
+        out.index_add_(0, idx4.reshape(-1), contrib.reshape(-1, c))
+    out = out.reshape(b, total, c)
+    return tuple(out[:, off:off + h * w].reshape(b, h, w, c)
+                 .permute(0, 3, 1, 2).to(dtype)
+                 for off, (h, w) in zip(offs, level_hw))
+
+
+def _kernel_forward(feats, boxes, batch_idx, levels, p, s, strides):
+    from tpuseg_torch.kernels import roi_align as K
+
+    return K.multilevel_roi_align(
+        [f.contiguous(memory_format=torch.channels_last) for f in feats],
+        boxes.float().contiguous(), batch_idx.to(torch.int32).contiguous(),
+        levels.to(torch.int32).contiguous(), p, s, strides)
+
+
+def _kernel_backward(grad_pooled, boxes, batch_idx, levels, feat_shapes,
+                     dtype, p, s, strides):
+    from tpuseg_torch.kernels import roi_align as K
+
+    return K.multilevel_roi_align_backward(
+        grad_pooled.permute(0, 2, 3, 1).contiguous(),
+        boxes.float().contiguous(), batch_idx.to(torch.int32).contiguous(),
+        levels.to(torch.int32).contiguous(), feat_shapes, dtype, p, s, strides)
+
+
+def multilevel_roi_align_backward(grad_pooled: torch.Tensor,
+                                  boxes: torch.Tensor, batch_idx: torch.Tensor,
+                                  levels: torch.Tensor, feat_shapes,
+                                  dtype: torch.dtype, output_size: int = 7,
+                                  sampling_ratio: int = 2,
+                                  strides=(4, 8, 16, 32),
+                                  kernel: bool | None = None) -> tuple:
+    """d(feats) of the FPN pooler: the backward kernel if ``kernel``, else
+    :func:`multilevel_roi_align_backward_plain`. ``kernel=None`` chooses by
+    the tensor (:func:`tpuseg_torch.kernels.use_kernel`); the pooler's
+    autograd Function passes the path its forward took."""
+    if kernel is None:
+        kernel = kernels.use_kernel(grad_pooled)
+    back = _kernel_backward if kernel else multilevel_roi_align_backward_plain
+    return back(grad_pooled, boxes, batch_idx, levels, feat_shapes, dtype,
+                output_size, sampling_ratio, strides)
+
+
+class _MultilevelRoIAlign(torch.autograd.Function):
+    """The differentiable pooler (``make_differentiable_pooler``,
+    ``roi_align_pl.py:466-493``): the forward kernel forward, the backward
+    kernel backward (their plain versions on the CPU). Only the features
+    get gradients; the path is chosen once, at the forward."""
+
+    @staticmethod
+    def forward(ctx, boxes, batch_idx, levels, p, s, strides, *feats):
+        ctx.kernel = kernels.use_kernel(feats[0])
+        ctx.meta = (tuple(tuple(f.shape) for f in feats), feats[0].dtype, p,
+                    s, strides)
+        ctx.save_for_backward(boxes, batch_idx, levels)
+        if ctx.kernel:
+            return _kernel_forward(feats, boxes, batch_idx, levels, p, s,
+                                   strides)
+        return multilevel_roi_align_plain(feats, boxes, batch_idx, levels, p,
+                                          s, strides)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, batch_idx, levels = ctx.saved_tensors
+        grads = multilevel_roi_align_backward(grad, boxes, batch_idx, levels,
+                                              *ctx.meta, kernel=ctx.kernel)
+        return (None,) * 6 + tuple(grads)
 
 
 def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
@@ -162,14 +308,43 @@ def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
                          sampling_ratio: int = 2,
                          strides=(4, 8, 16, 32)) -> torch.Tensor:
     """FPN pooler: [B, C, H_l, W_l] levels, boxes [N, 4], batch_idx and
-    levels [N] -> [N, C, P, P]. Kernel for CUDA tensors, plain for CPU."""
-    if not kernels.use_kernel(feats[0]):
-        return multilevel_roi_align_plain(feats, boxes, batch_idx, levels,
-                                          output_size, sampling_ratio, strides)
-    from tpuseg_torch.kernels import roi_align as K
+    levels [N] -> [N, C, P, P]. Kernel for CUDA tensors, plain for CPU;
+    differentiable in the features (boxes get no gradient)."""
+    return _MultilevelRoIAlign.apply(boxes, batch_idx, levels, output_size,
+                                     sampling_ratio, tuple(strides), *feats)
 
-    return K.multilevel_roi_align(
-        [f.contiguous(memory_format=torch.channels_last) for f in feats],
-        boxes.float().contiguous(), batch_idx.to(torch.int32).contiguous(),
-        levels.to(torch.int32).contiguous(), output_size, sampling_ratio,
-        strides)
+
+def roi_align(features: torch.Tensor, rois: torch.Tensor,
+              batch_idx: torch.Tensor, output_size: int = 7,
+              spatial_scale: float = 1.0, sampling_ratio: int = 2,
+              aligned: bool = False) -> torch.Tensor:
+    """Single-level RoIAlign (port of ``tpuseg/ops/sampling.py::roi_align``
+    with a fixed sampling grid; plain torch, as the JAX package leaves it to
+    XLA). features [B, C, H, W], rois [N, 4] xyxy image coordinates ->
+    [N, C, P, P]. ROIAlign_cuda border rules; ``aligned=True`` shifts the
+    roi by half a pixel and does not clamp its extent to >= 1. The adaptive
+    grid (``sampling_ratio=0``, the C4 pooler's) is not ported yet."""
+    if sampling_ratio <= 0:
+        raise NotImplementedError("adaptive sampling (sampling_ratio=0)")
+    b, c, h, w = features.shape
+    p, s = output_size, sampling_ratio
+    dt, dev = rois.dtype, rois.device
+    off = 0.5 if aligned else 0.0
+    x1 = rois[:, 0] * spatial_scale - off
+    y1 = rois[:, 1] * spatial_scale - off
+    roi_w = rois[:, 2] * spatial_scale - off - x1
+    roi_h = rois[:, 3] * spatial_scale - off - y1
+    if not aligned:
+        roi_w = roi_w.clamp(min=1.0)
+        roi_h = roi_h.clamp(min=1.0)
+    bins = torch.arange(p, dtype=dt, device=dev)
+    slots = torch.arange(s, dtype=dt, device=dev)
+    grid = (bins[:, None] + _true_div(slots + 0.5, s)[None, :]).reshape(-1)
+    n = rois.shape[0]
+    lat = _Lattice(torch.full((n,), h, dtype=dt, device=dev),
+                   torch.full((n,), w, dtype=dt, device=dev),
+                   batch_idx.long() * (h * w),
+                   y1[:, None] + grid[None, :] * _true_div(roi_h, p)[:, None],
+                   x1[:, None] + grid[None, :] * _true_div(roi_w, p)[:, None])
+    flat = features.permute(0, 2, 3, 1).reshape(b * h * w, c)
+    return _pool(flat, lat, p, s, features.dtype)

@@ -21,7 +21,7 @@ def main(argv=None):
 
     import numpy as np
 
-    from tpuseg.data.image_io import load_image_bgr, save_image_bgr
+    from tpuseg_torch.data.image_io import load_image_bgr, save_image_bgr
     from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
 
     demo = MaskRCNNPredictor(weights=args.weights, device=args.device,

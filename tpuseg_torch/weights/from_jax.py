@@ -13,7 +13,7 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, np.float32, order="C"))  # a copy
 
 
 def _conv(sd: dict, name: str, p: dict) -> None:
