@@ -17,25 +17,37 @@ Phases, one line each; any failure raises and exits non-zero:
      an order that changes from run to run; bf16: |err| <= 2^-8 |ref| +
      1e-3 against the plain version in f32), and the differentiable
      pooler's feature gradient against the kernel's;
-  6. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
+  6. the DCN sampling kernel against its plain version at the six DCN
+     geometries of YOLACT++-550 R-50, B = 8 (f32 bit for bit; bf16 as
+     RoIAlign's), grid_sample against the plain version (1e-4 max|ref|),
+     and a zero-offset DCN against F.conv2d (TF32 off, 1e-4);
+  7. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
      (full width, 81 classes, synthetic upstream-keyed weights from a numpy
      seed): launch counts per forward, sane outputs, and the heads run on
      one shared pyramid through the kernels and through the plain versions
      must agree detection for detection;
-  7. Mask R-CNN R-50-FPN training through do_train: 3 iterations at B = 2
+  8. Mask R-CNN R-50-FPN training through do_train: 3 iterations at B = 2
      on the 800x1344 canvas over an in-memory synthetic dataset, launch
      counts per step, finite losses, frozen stages still and the rest
      moved; then one step on one batch with the same draws and TF32 off,
      through the kernels and through the plain versions (losses rtol 1e-6,
      gradients rtol 1e-4 / atol 1e-6 max|g|);
-  8. timings: each kernel against its plain version, forward img/s at
-     B = 1 and 2 and the training step at B = 2 on the 800x1344 canvas
-     through both paths.
+  9. YOLACT++-550 R-50-FPN inference through YolactPredictor on the card
+     (full width, synthetic upstream-keyed weights with non-zero DCN
+     offsets), f32 and bf16 at B = 1 and 8: 13 DCN sampling launches per
+     forward, sane detections, and kernels vs plain detection for
+     detection, also with greedy NMS (use_fast_nms=False, one NMS launch);
+  10. timings: each kernel against its plain version and its bound (DCN
+     sampling also against grid_sample), Mask R-CNN forward img/s at B = 1
+     and 2 and its training step at B = 2 on the 800x1344 canvas, YOLACT++
+     forward and run_batch img/s at B = 1 and 8 in f32 and bf16, through
+     both paths.
 Then one JSON line of kernel results, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -46,16 +58,22 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpuseg_torch import kernels
+from tpuseg_torch.configs.presets import yolact_model_config
 from tpuseg_torch.engine import detectron_train_loop as TL
 from tpuseg_torch.engine.maskrcnn_engine import (MaskRCNNPredictor,
                                                  preprocess_image_bgr)
 from tpuseg_torch.engine.trainer import make_optimizer
+from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.models import yolact as YM
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops import sampling
+from tpuseg_torch.ops.deform_conv import dcn_sample_coords, deform_conv2d
+from tpuseg_torch.ops.preprocess import yolact_preprocess
 
 SEED = 0
 CANVAS = (800, 1344)
@@ -67,11 +85,18 @@ STRIDES = (4, 8, 16, 32)
 # no softmax score saturates at 1.0 (272 candidates at a 320x480 canvas)
 CLS_SCORE_SCALE = 0.008
 TRAIN_STEPS = 3
-PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2}
+PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2,
+            "dcn_sample": 0}
 # the backward's shapes at B = 2: the box pooler's 2 x 512 sampled rois at
 # P = 7 and the mask pooler's 2 x 128 at P = 14
 BWD_SHAPES = ((1024, 7), (256, 14))
 PIXEL_VAR = 75.0 ** 2  # of textured_image's pixels less the pixel mean
+# DCN offset convs' weights: N(0, 1/fan) times this, so the offsets have a
+# standard deviation of 1.5-3.5 px (see synthetic_yolact_state_dict)
+OFFSET_SCALE = 2.0
+# YOLACT's class-logit layer: N(0, 1/fan) times this spreads the best
+# class scores, so that few of them lie near the 0.05 gate
+CONF_SCALE = 3.0
 # the least time of a kernel's work: bytes over the H100 SXM's memory rate,
 # f32 operations over its rate outside the tensor cores (the H100 SXM's
 # published peaks; the kernels compute in f32 for bf16 data too)
@@ -80,6 +105,15 @@ F32_OPS_PER_S = 67e12
 NMS_OPS_PER_PAIR = 16  # the IoU: 2 min, 2 max, 4 sub/add, 2 clamp, mul,
 #                        add, sub, clamp, div; the threshold compare
 ROI_OPS_PER_SAMPLE = 12  # per channel: 4 corner weights, 4 mul, 4 add
+# YOLACT++-550 R-50's deformable 3x3 convs, (H, W, C, stride) of their
+# inputs: layer2 block 0, blocks 1-3, layer3 block 0, blocks 1-5, layer4
+# block 0, blocks 1-2 (13 per forward)
+DCN_SHAPES = ((138, 138, 128, 2), (69, 69, 128, 1), (69, 69, 256, 2),
+              (35, 35, 256, 1), (35, 35, 512, 2), (18, 18, 512, 1))
+DCN_PER_FORWARD = (1, 3, 1, 5, 1, 2)
+DCN_BATCH = 8
+DCN_OPS_PER_VALUE = 12  # per sample and channel: 4 corner weights, 4 mul,
+#                         3 add, the modulation
 
 
 def log(msg: str) -> None:
@@ -319,7 +353,8 @@ def phase_roi_align_bwd(dev) -> dict:
                                         BWD_SHAPES[0][1], 2, STRIDES)
     out.backward(grad)
     counts = kernels.launch_counts()
-    if counts != {"nms": 0, "roi_align": 1, "roi_align_bwd": 1}:
+    if counts != {"nms": 0, "roi_align": 1, "roi_align_bwd": 1,
+                  "dcn_sample": 0}:
         raise AssertionError(f"pooler forward + backward launched {counts}")
     err = bwd_error([f.grad for f in feats],
                     run_bwd(case, BWD_SHAPES[0][1], torch.float32),
@@ -331,7 +366,101 @@ def phase_roi_align_bwd(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the inference slice
+# phase 6: DCN sampling
+# ---------------------------------------------------------------------------
+
+
+def dcn_case(dev, h: int, w: int, c: int, stride: int, dtype=torch.float32):
+    """Features [B, C, H, W] (channels-last) and the points that
+    deform_conv2d samples on them: offsets ~ N(0, 2^2) px, 1 % of them
+    pushed 8-25 px further out, modulation sigmoid(N(0, 1))."""
+    g = torch.Generator().manual_seed(SEED + 10 + h + c + stride)
+    b = DCN_BATCH
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    feats = torch.randn(b, c, h, w, generator=g).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    off = torch.randn(b, 18, ho, wo, generator=g) * 2.0
+    far = torch.rand(off.shape, generator=g) < 0.01
+    n = int(far.sum())
+    off[far] += (8.0 + 17.0 * torch.rand(n, generator=g)) * torch.sign(
+        torch.randn(n, generator=g))
+    mask = torch.sigmoid(torch.randn(b, 9, ho, wo, generator=g))
+    return (feats, *dcn_sample_coords(off.to(dev), mask.to(dev), 3, stride,
+                                      1, 1))
+
+
+def grid_sample_points(feats, sy, sx, m):
+    """The sampler's function as one PyTorch call (the yardstick for
+    library_ms; nothing on the port's path calls it): grid_sample with
+    align_corners=True maps -1 and 1 to the first and last pixel centres,
+    zero padding, then the modulation. grid_sample takes its grid in the
+    features' dtype, so for bf16 features the points are rounded to bf16."""
+    h, w = feats.shape[2:]
+    grid = torch.stack([2.0 * sx / (w - 1) - 1.0, 2.0 * sy / (h - 1) - 1.0],
+                       -1)[:, :, None, :]
+    out = F.grid_sample(feats, grid.to(feats.dtype), mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    return out[..., 0].transpose(1, 2) * m[..., None].to(feats.dtype)
+
+
+def phase_dcn(dev) -> dict:
+    """At each DCN geometry of YOLACT++-550 R-50, B = 8: f32 equal to the
+    plain version bit for bit; bf16 within 2^-8 |ref| + 1e-3 of the plain
+    version in f32; grid_sample within 1e-4 max|ref| of the plain version;
+    a DCN with zero offsets and unit modulation equal to F.conv2d (TF32
+    off) within rtol 1e-4 / atol 1e-4 max|ref|."""
+    worst, lines = 0.0, []
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for h, w, c, st in DCN_SHAPES:
+            feats, sy, sx, m = dcn_case(dev, h, w, c, st)
+            got = sampling.sample_points(feats, sy, sx, m)
+            want = sampling.sample_points_plain(feats, sy, sx, m)
+            worst = max(worst, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"dcn_sample {h}x{w}x{c}: f32 differs "
+                                     f"from the plain version by "
+                                     f"{float((got - want).abs().max())}")
+            fb = feats.bfloat16()
+            got_bf = sampling.sample_points(fb, sy, sx, m).float()
+            ref = sampling.sample_points_plain(fb.float(), sy, sx, m)
+            err_bf = (got_bf - ref).abs()
+            excess = float((err_bf - (2.0 ** -8 * ref.abs() + 1e-3)).max())
+            if excess > 0:
+                raise AssertionError(f"dcn_sample bf16 {h}x{w}x{c}: error "
+                                     f"exceeds 2^-8|ref| + 1e-3 by {excess}")
+            lib_err = float((grid_sample_points(feats, sy, sx, m)
+                             - want).abs().max())
+            # grid_sample carries each point through [-1, 1] and back:
+            # ~(W - 1) 2^-24 px of rounding, 5e-5 of max|ref| at 138 px
+            if lib_err > 1e-4 * float(want.abs().max()):
+                raise AssertionError(f"grid_sample {h}x{w}x{c}: {lib_err}")
+            wt = torch.randn(c, c, 3, 3, device=dev) * (9 * c) ** -0.5
+            bias = torch.randn(c, device=dev) * 0.1
+            ho, wo = (h - 1) // st + 1, (w - 1) // st + 1
+            dcn = deform_conv2d(feats, torch.zeros(DCN_BATCH, 18, ho, wo,
+                                                   device=dev),
+                                torch.ones(DCN_BATCH, 9, ho, wo, device=dev),
+                                wt, bias, 3, st, 1, 1)
+            conv = F.conv2d(feats, wt, bias, stride=st, padding=1)
+            conv_err = float((dcn - conv).abs().max())
+            torch.testing.assert_close(dcn, conv, rtol=1e-4,
+                                       atol=1e-4 * float(conv.abs().max()))
+            outside = float((want[:, :, 0] == 0).float().mean())
+            lines.append(f"{h}x{w}x{c} s{st}: f32 equal, bf16 max err "
+                         f"{float(err_bf.max()):.3g}, grid_sample "
+                         f"{lib_err:.3g}, zero-offset DCN vs conv "
+                         f"{conv_err:.3g}, {100 * outside:.1f} % of samples "
+                         f"wholly outside")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    log(f"[6 dcn_sample] B = {DCN_BATCH}: " + "; ".join(lines))
+    return {"max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Mask R-CNN inference
 # ---------------------------------------------------------------------------
 
 
@@ -429,7 +558,8 @@ def phase_slice(dev, tmp: Path) -> tuple:
     res_p = pred.run_on_bgr_image(portrait)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    per_forward = {"nms": 6, "roi_align": 2, "roi_align_bwd": 0}
+    per_forward = {"nms": 6, "roi_align": 2, "roi_align_bwd": 0,
+                   "dcn_sample": 0}
     if after_l != per_forward or counts != {k: 2 * v for k, v in per_forward.items()}:
         raise AssertionError(f"launches: {after_l} after the landscape batch, "
                              f"{counts} after the portrait image; want "
@@ -438,7 +568,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
             for r, img in zip(res_l + [res_p], landscape + [portrait])]
     if min(ndet) == 0:
         raise AssertionError(f"no detections: {ndet}")
-    log(f"[6 inference] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
+    log(f"[7 inference] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
         f"images: launches {counts} (6 NMS + 2 RoIAlign per forward), "
         f"detections {ndet}")
 
@@ -456,7 +586,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-    log(f"[6 inference] heads on one pyramid, kernels vs plain: "
+    log(f"[7 inference] heads on one pyramid, kernels vs plain: "
         f"{compare_heads(got, want)}; valid proposals "
         f"{got['proposal_valid'].sum(1).tolist()}, class-box candidates "
         f"{got['candidate_valid'].sum(1).tolist()}")
@@ -475,7 +605,7 @@ def canvas_batch(pred: MaskRCNNPredictor, imgs: list):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training
+# phase 8: Mask R-CNN training
 # ---------------------------------------------------------------------------
 
 
@@ -613,7 +743,7 @@ def phase_train(dev, tmp: Path) -> dict:
     fresh = M.build_model(cfg)
     ckpt = torch.load(tmp / f"model_{TRAIN_STEPS:07d}.pth", weights_only=True)
     fresh.load_state_dict(ckpt["model"], strict=True)
-    log(f"[7 train] do_train {it} iterations at B = 2 on the 800x1344 canvas: "
+    log(f"[8 train] do_train {it} iterations at B = 2 on the 800x1344 canvas: "
         f"launches {counts} ({PER_STEP} per step); total loss "
         f"{[round(h['total'], 4) for h in history]}; {len(frozen)} frozen "
         f"tensors still, {len(trainable)} trainable parameters moved; "
@@ -637,14 +767,201 @@ def phase_train(dev, tmp: Path) -> dict:
         torch.backends.cudnn.allow_tf32 = prev_tf32
     if path_counts != PER_STEP:
         raise AssertionError(f"kernel-path step launched {path_counts}")
-    log(f"[7 train] one step, kernels vs plain (cudnn.allow_tf32 False, "
+    log(f"[8 train] one step, kernels vs plain (cudnn.allow_tf32 False, "
         f"matmul precision {torch.get_float32_matmul_precision()}): "
         f"{compare_steps(got, want)}")
     return {"model": model, "batch": batch, "counts": counts}
 
 
 # ---------------------------------------------------------------------------
-# phase 8: timing
+# phase 9: YOLACT++ inference
+# ---------------------------------------------------------------------------
+
+
+def synthetic_yolact_state_dict(model: torch.nn.Module, seed: int) -> dict:
+    """Upstream-keyed random YOLACT weights from a numpy seed: BN stats
+    near 1, conv weights N(0, 1/fan), small biases. The DCN offset convs
+    get OFFSET_SCALE times that (upstream zero-initialises them, and zero
+    offsets would make every DCN a plain conv): their offsets span a few
+    pixels with fractional parts and some taps leave the map."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros((), dtype=torch.int64)
+            continue
+        if k.endswith("running_var") or (k.endswith(".weight")
+                                         and len(shape) == 1):
+            a = rng.uniform(0.7, 1.3, shape)
+        elif k.endswith(".weight"):
+            a = rng.standard_normal(shape) * np.prod(shape[1:]) ** -0.5
+            if "conv_offset_mask" in k:
+                a *= OFFSET_SCALE
+            elif k.endswith("conf_layer.weight"):
+                a *= CONF_SCALE
+        elif k.endswith("running_mean"):
+            a = rng.standard_normal(shape) * 0.05
+        else:  # biases
+            a = rng.standard_normal(shape) * 0.02
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def calibrate_yolact_gate(model, images: torch.Tensor, want=(10, 80),
+                          margin: float = 1e-4) -> float:
+    """Add to the class layer's background biases the least shift (a grid
+    of 0.05) after which every image of ``images`` (normalised [B, 3, S,
+    S]) has ``want[0]``..``want[1]`` priors whose best class score passes
+    ``conf_thresh``, and no prior's best score lies within ``margin`` of
+    it (random weights give no trained network's wide gap between
+    background and objects). A shift of the background logit moves every
+    score without another forward. Returns the shift."""
+    cfg = model.cfg
+    with torch.no_grad():
+        conf = model(images)["conf"].double()
+        fg_max = conf[..., 1:].amax(-1)
+        fg_lse = torch.logsumexp(conf[..., 1:], -1)
+        for shift in np.arange(0.0, 40.0, 0.05):
+            # the best foreground softmax score with the shifted background
+            best = torch.exp(fg_max - torch.logaddexp(conf[..., 0] + shift,
+                                                      fg_lse))
+            n = (best > cfg.conf_thresh).sum(1)
+            if (bool(((n >= want[0]) & (n <= want[1])).all())
+                    and float((best - cfg.conf_thresh).abs().min()) > margin):
+                bias = model.prediction_layers[0].conf_layer.bias
+                bias.view(-1, cfg.num_classes)[:, 0] += float(shift)
+                return float(shift)
+    raise AssertionError("no background shift puts the gate in a gap")
+
+
+def yolact_images(seed: int, b: int, size: int) -> np.ndarray:
+    """[b, size, size, 3] uint8 RGB textured images."""
+    rng = np.random.default_rng(seed)
+    return np.stack([textured_image(rng, size, size) for _ in range(b)])
+
+
+def check_yolact(pred: YolactPredictor, det: dict, b: int) -> list:
+    """Shapes, finite values, boxes inside the image after upstream's
+    post-processing, masks in [0, 1], a detection in every image; returns
+    the detection counts."""
+    k, s = pred.cfg.max_num_detections, 2 * YM.level_sizes(pred.cfg)[0]
+    shapes = {"boxes": (b, k, 4), "scores": (b, k), "classes": (b, k),
+              "masks": (b, k, s, s), "valid": (b, k), "mask_scores": (b, k)}
+    if {n: tuple(v.shape) for n, v in det.items()} != shapes:
+        raise AssertionError(f"YOLACT detections {det.keys()}")
+    det = {n: v.float().cpu().numpy() if v.is_floating_point()
+           else v.cpu().numpy() for n, v in det.items()}
+    counts = det["valid"].sum(1).tolist()
+    v = det["valid"]
+    if min(counts) == 0 or not all(np.isfinite(det[n][v]).all() for n in (
+            "boxes", "scores", "masks", "mask_scores")):
+        raise AssertionError(f"YOLACT detections: counts {counts}, or not "
+                             "finite")
+    if not ((det["masks"] >= 0) & (det["masks"] <= 1)).all() or not (
+            (det["scores"][v] > 0) & (det["scores"][v] <= 1)).all():
+        raise AssertionError("YOLACT masks or scores outside [0, 1]")
+    size = pred.cfg.img_size
+    for i in range(b):
+        res = pred.postprocess_image({n: a[i] for n, a in det.items()},
+                                     size, size)
+        if not ((res["boxes"] >= 0) & (res["boxes"] <= size)).all() or (
+                res["masks"].shape != (counts[i], size, size)):
+            raise AssertionError(f"YOLACT image {i}: post-processed boxes "
+                                 "outside the image")
+    return counts
+
+
+def compare_yolact(got: dict, want: dict) -> tuple:
+    """Kernel path vs plain path on one batch, detection for detection:
+    counts and classes equal, boxes atol 1e-5, scores and mask_scores rtol
+    1e-5, masks atol 1e-4. Returns the largest errors."""
+    err = {n: 0.0 for n in ("boxes", "scores", "mask_scores", "masks")}
+    for i in range(got["valid"].shape[0]):
+        gv, wv = got["valid"][i], want["valid"][i]
+        if int(gv.sum()) != int(wv.sum()) or not torch.equal(
+                got["classes"][i][gv], want["classes"][i][wv]):
+            raise AssertionError(f"YOLACT image {i}: detections differ")
+        for n, (atol, rtol) in (("boxes", (1e-5, 0)), ("scores", (0, 1e-5)),
+                                ("mask_scores", (0, 1e-5)),
+                                ("masks", (1e-4, 0))):
+            torch.testing.assert_close(got[n][i][gv], want[n][i][wv],
+                                       atol=atol, rtol=rtol)
+            err[n] = max(err[n], float((got[n][i][gv] - want[n][i][wv])
+                                       .abs().max()))
+    return err
+
+
+def phase_yolact(dev) -> dict:
+    """YOLACT++-550 R-50-FPN through YolactPredictor on the card, f32 and
+    bf16, B = 1 and 8, on synthetic upstream-keyed weights whose DCN
+    offsets are not zero: 13 dcn_sample launches per forward, sane
+    detections, and kernels vs plain (TF32 off) detection for detection."""
+    cfg = yolact_model_config("yolact_plus_resnet50")
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(model, SEED),
+                          strict=True)
+    images = yolact_images(SEED, 8, cfg.img_size)
+    model = model.to(dev)
+    shift = calibrate_yolact_gate(
+        model, yolact_preprocess(torch.from_numpy(images).to(dev),
+                                 cfg.img_size), want=(10, 500), margin=0.0)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    preds = {dt: YolactPredictor(cfg, state_dict=sd, dtype=dt, device=dev)
+             for dt in (torch.float32, torch.bfloat16)}
+    per_forward = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+                   "dcn_sample": sum(DCN_PER_FORWARD)}
+    lines = []
+    for dt, pred in preds.items():
+        for b in (1, 8):
+            kernels.reset_launch_counts()
+            det = pred.run_batch(images[:b])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if counts != per_forward:
+                raise AssertionError(f"YOLACT {dt} B={b} launched {counts}; "
+                                     f"want {per_forward}")
+            lines.append(f"{str(dt)[6:]} B={b}: detections "
+                         f"{check_yolact(pred, det, b)}")
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = preds[torch.float32].run_batch(images)
+        with kernels.force_plain():
+            want = preds[torch.float32].run_batch(images)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    err = compare_yolact(got, want)
+    # the greedy-NMS option (use_fast_nms=False): one NMS launch per batch
+    pred = preds[torch.float32]
+    greedy = dataclasses.replace(cfg, use_fast_nms=False)
+    with torch.inference_mode():
+        raw = {k: v.float() for k, v in pred.model(yolact_preprocess(
+            torch.from_numpy(images).to(dev), cfg.img_size)).items()}
+        kernels.reset_launch_counts()
+        got = YM.detect(raw, pred.priors, greedy, pred.model.maskiou_net)
+        greedy_counts = kernels.launch_counts()
+        with kernels.force_plain():
+            want = YM.detect(raw, pred.priors, greedy, pred.model.maskiou_net)
+    if greedy_counts["nms"] != 1:
+        raise AssertionError(f"greedy-NMS detect launched {greedy_counts}")
+    err_greedy = compare_yolact(got, want)
+    log(f"[9 yolact] YolactPredictor, yolact_plus_resnet50 at "
+        f"{cfg.img_size}x{cfg.img_size} "
+        f"(background logit +{shift:.2f}): {per_forward['dcn_sample']} "
+        f"dcn_sample launches per forward; " + "; ".join(lines)
+        + "; kernels vs plain, f32 B=8, TF32 off: detections equal, max err "
+        + ", ".join(f"{n} {e:.3g}" for n, e in err.items())
+        + "; detect with use_fast_nms=False (1 NMS launch), kernel vs plain "
+        f"NMS: detections {got['valid'].sum(1).tolist()} equal, max err "
+        + ", ".join(f"{n} {e:.3g}" for n, e in err_greedy.items()))
+    return {"preds": preds, "images": images, "counts": per_forward}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing
 # ---------------------------------------------------------------------------
 
 
@@ -769,11 +1086,11 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
     for name, t in times.items():
         if name.startswith("forward"):
             b = int(name.split("B=")[1][0])
-            log(f"[8 timing] {name}: kernels {1e3 * b / t[0]:.2f} img/s "
+            log(f"[10 timing] {name}: kernels {1e3 * b / t[0]:.2f} img/s "
                 f"({t[0]:.3f} ms), plain {1e3 * b / t[1]:.2f} img/s "
                 f"({t[1]:.3f} ms) [{card}]")
         else:
-            log(f"[8 timing] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
+            log(f"[10 timing] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
                 f"ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
 
     # the training step (forward, backward, SGD) at B = 2 with TF32
@@ -791,9 +1108,74 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
     k2 = cuda_time_ms(step, iters=5, warmup=0)
     k = (k1 + k2) / 2
     times["train step B=2 800x1344"] = (k, p)
-    log(f"[8 timing] train step B=2 800x1344: kernels {k:.3f} ms "
+    log(f"[10 timing] train step B=2 800x1344: kernels {k:.3f} ms "
         f"({1e3 / k:.3f} it/s; two runs of 5: {k1:.3f}, {k2:.3f}), plain "
         f"{p:.3f} ms ({1e3 / p:.3f} it/s, one step) [{card}]")
+    return times
+
+
+def dcn_touched_cells(sy, sx, h: int, w: int) -> int:
+    """Distinct (image, y, x) cells that the samples give a non-zero
+    bilinear weight: the feature cells the function needs."""
+    b = sy.shape[0]
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    ly, lx = sy - y0, sx - x0
+    base = (torch.arange(b, device=sy.device) * (h * w))[:, None]
+    cells = []
+    for yc, wy in ((y0, 1.0 - ly), (y0 + 1, ly)):
+        for xc, wx in ((x0, 1.0 - lx), (x0 + 1, lx)):
+            ok = ((yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
+                  & (wy * wx != 0))
+            cells.append(base.expand_as(yc)[ok] + (yc * w + xc)[ok].long())
+    return int(torch.unique(torch.cat(cells)).numel())
+
+
+def dcn_bound(feats, sy, sx) -> tuple:
+    """The touched cells' C channels read, sy/sx/m read, [B, S, C] written;
+    DCN_OPS_PER_VALUE f32 operations per output value."""
+    b, c, h, w = feats.shape
+    s, item = sy.shape[1], feats.element_size()
+    nbytes = (dcn_touched_cells(sy, sx, h, w) * c * item + b * s * 3 * 4
+              + b * s * c * item)
+    return bound(nbytes, DCN_OPS_PER_VALUE * b * s * c)
+
+
+def time_yolact(dev, yolact: dict, card: str) -> dict:
+    """dcn_sample against its plain version, its bound and grid_sample at
+    each DCN geometry (B = 8, f32 and bf16); the YOLACT++ forward and
+    run_batch (preprocess, forward, detect) at B = 1 and 8, f32 and bf16,
+    kernels against plain."""
+    times = {}
+    with torch.inference_mode():
+        for h, w, c, st in DCN_SHAPES:
+            for dt in (torch.float32, torch.bfloat16):
+                feats, sy, sx, m = dcn_case(dev, h, w, c, st, dt)
+                k, p = time_pair(
+                    lambda: sampling.sample_points(feats, sy, sx, m),
+                    iters=10)
+                lib = cuda_time_ms(
+                    lambda: grid_sample_points(feats, sy, sx, m), iters=10)
+                name = (f"dcn_sample {str(dt)[6:]} B={DCN_BATCH} "
+                        f"{h}x{w}x{c} s{st}")
+                times[name] = (k, p) + dcn_bound(feats, sy, sx) + (lib,)
+                log(f"[10 timing] {name}: kernel {k:.4f} ms, plain {p:.4f} "
+                    f"ms, bound {times[name][2]:.4g} ms by "
+                    f"{times[name][3]}, grid_sample {lib:.4f} ms [{card}]")
+        images = torch.from_numpy(yolact["images"]).to(dev)
+        for dt, pred in yolact["preds"].items():
+            for b in (1, 8):
+                x = yolact_preprocess(images[:b], pred.cfg.img_size).to(dt)
+                for label, fn in (("forward", lambda: pred.model(x)),
+                                  ("run_batch", lambda: pred.run_batch(
+                                      images[:b]))):
+                    k, p = time_pair(fn, iters=5)
+                    name = f"yolact {label} {str(dt)[6:]} B={b}"
+                    times[name] = (k, p)
+                    log(f"[10 timing] YOLACT++ {label} {str(dt)[6:]} B={b} "
+                        f"{images.shape[1]}x{images.shape[2]}: kernels "
+                        f"{1e3 * b / k:.2f} img/s ({k:.3f} "
+                        f"ms), plain {1e3 * b / p:.2f} img/s ({p:.3f} ms) "
+                        f"[{card}]")
     return times
 
 
@@ -803,8 +1185,9 @@ def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
             "launches_by_path": launches, "max_abs_err": err, "ms": t[0],
             "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
             # no PyTorch call computes NMS or multi-level RoIAlign (or its
-            # gradient) without torchvision, which is not a dependency
-            "library_ms": None}
+            # gradient) without torchvision, which is not a dependency;
+            # grid_sample computes DCN sampling
+            "library_ms": t[4] if len(t) > 4 else None}
 
 
 def main() -> int:
@@ -828,14 +1211,20 @@ def main() -> int:
     nms_res = phase_nms(dev)
     roi_res = phase_roi_align(dev)
     bwd_res = phase_roi_align_bwd(dev)
+    dcn_res = phase_dcn(dev)
     with tempfile.TemporaryDirectory() as tmp:
         pred, infer_counts = phase_slice(dev, Path(tmp))
         train = phase_train(dev, Path(tmp))
+    yolact = phase_yolact(dev)
     times = phase_timing(dev, pred, train, card)
+    times.update(time_yolact(dev, yolact, card))
 
     def launches(name):
+        """Per path: the Mask R-CNN forward, three training steps, one
+        YOLACT++ forward."""
         return {"inference": infer_counts[name],
-                "training": train["counts"][name]}
+                "training": train["counts"][name],
+                "yolact_inference": yolact["counts"][name]}
 
     log(json.dumps({"kernels": [
         kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
@@ -850,6 +1239,11 @@ def main() -> int:
                      "tpuseg/ops/pallas/roi_align_pl.py:390",
                      launches("roi_align_bwd"), bwd_res["max_abs_err"],
                      times["roi_align_bwd float32 N=1024 P=7"]),
+        kernel_entry("dcn_sample", "tpuseg_torch/csrc/dcn_sample.cu",
+                     ["tpuseg/ops/pallas/dcn_pl.py:60",
+                      "tpuseg/ops/pallas/dcn_pl.py:212"],
+                     launches("dcn_sample"), dcn_res["max_abs_err"],
+                     times[f"dcn_sample float32 B={DCN_BATCH} 69x69x128 s1"]),
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -127,10 +127,51 @@ def test_pooler_autograd_uses_both_kernels():
     out = sampling.multilevel_roi_align(feats, boxes, bidx, levels, 7, 2)
     (out * dp).sum().backward()
     assert kernels.launch_counts() == {"nms": 0, "roi_align": 1,
-                                       "roi_align_bwd": 1}
+                                       "roi_align_bwd": 1, "dcn_sample": 0}
     want = sampling.multilevel_roi_align_backward(
         dp, boxes, bidx, levels, [f.shape for f in feats], torch.float32, 7, 2)
     _assert_bwd_close([f.grad for f in feats], want, torch.float32)
+
+
+def _points(rng, b, s, h, w):
+    """Sample rows and columns spread over the map and 2 px past its
+    border, 5 % of them far outside, and a modulation in (0, 1)."""
+    sy = rng.uniform(-2.0, h + 1.0, (b, s))
+    sx = rng.uniform(-2.0, w + 1.0, (b, s))
+    far = rng.uniform(size=(b, s)) < 0.05
+    sy[far] += rng.choice([-1.0, 1.0], far.sum()) * rng.uniform(8, 25, far.sum())
+    m = rng.uniform(0.05, 1.0, (b, s))
+    return [torch.from_numpy(a.astype(np.float32)) for a in (sy, sx, m)]
+
+
+@pytest.mark.parametrize("c", [64, 128, 512])
+@pytest.mark.parametrize("modulated", [True, False])
+def test_dcn_sample_kernel_matches_plain(c, modulated):
+    """S = 1001 (not a multiple of the 256-thread block); f32 equal bit
+    for bit (IEEE-rounded steps in one order on both sides); bf16 within
+    the output's one rounding, 2^-8 |ref| + 1e-3, of the plain version
+    computed in f32 on the same bf16 values."""
+    dev = _device()
+    rng = np.random.default_rng(c)
+    b, h, w, s = 2, 19, 23, 1001
+    sy, sx, m = (t.to(dev) for t in _points(rng, b, s, h, w))
+    m = m if modulated else None
+    feats = torch.from_numpy(rng.standard_normal((b, c, h, w))
+                             .astype(np.float32)).to(dev)
+    before = kernels.launch_counts()["dcn_sample"]
+    got = sampling.sample_points(feats, sy, sx, m)
+    assert kernels.launch_counts()["dcn_sample"] == before + 1
+    assert got.shape == (b, s, c) and got.dtype == torch.float32
+    want = sampling.sample_points_plain(feats, sy, sx, m)
+    assert torch.equal(got, want)
+    assert bool((got[:, :, 0] == 0).any())  # some samples wholly outside
+    fb = feats.bfloat16()
+    got_bf = sampling.sample_points(fb, sy, sx, m)
+    assert got_bf.dtype == torch.bfloat16
+    assert torch.equal(got_bf, sampling.sample_points_plain(fb, sy, sx, m))
+    ref = sampling.sample_points_plain(fb.float(), sy, sx, m)
+    assert bool(((got_bf.float() - ref).abs()
+                 <= 2.0 ** -8 * ref.abs() + 1e-3).all())
 
 
 def test_kernel_wrappers_reject_bad_inputs():
@@ -158,3 +199,20 @@ def test_kernel_wrappers_reject_bad_inputs():
             torch.zeros(2, dtype=torch.int32, device=dev),
             torch.zeros(2, dtype=torch.int32, device=dev), [(1, 8, 4, 4)],
             torch.float32, 7, 2, (4,))
+    from tpuseg_torch.kernels.dcn import sample_points
+
+    cl = torch.zeros(2, 8, 4, 4, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    pts = torch.zeros(2, 5, device=dev)
+    with pytest.raises(ValueError):  # NCHW, not channels_last
+        sample_points(torch.zeros(2, 8, 4, 4, device=dev), pts, pts, pts)
+    with pytest.raises(ValueError):  # f64 features
+        sample_points(cl.double(), pts, pts, pts)
+    with pytest.raises(ValueError):  # coordinates not f32
+        sample_points(cl, pts.half(), pts, pts)
+    with pytest.raises(ValueError):  # a batch other than the features'
+        sample_points(cl, pts[:1], pts[:1], None)
+    with pytest.raises(ValueError):  # modulation of another shape
+        sample_points(cl, pts, pts, pts[:, :4].contiguous())
+    with pytest.raises(ValueError):  # coordinates on the host
+        sample_points(cl, pts.cpu(), pts, None)

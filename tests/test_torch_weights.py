@@ -28,7 +28,10 @@ SLICE_MODULES = [
     "tpuseg_torch.engine.maskrcnn_engine", "tpuseg_torch.engine.predictor",
     "tpuseg_torch.tools.maskrcnn_infer", "tpuseg_torch.data.image_io",
     "tpuseg_torch.models.maskrcnn_loss", "tpuseg_torch.engine.trainer",
-    "tpuseg_torch.engine.detectron_train_loop",
+    "tpuseg_torch.engine.detectron_train_loop", "tpuseg_torch.kernels.dcn",
+    "tpuseg_torch.ops.deform_conv", "tpuseg_torch.models.yolact",
+    "tpuseg_torch.configs.presets", "tpuseg_torch.weights.yolact_map",
+    "tpuseg_torch.engine.yolact_engine", "tpuseg_torch.tools.yolact_infer",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 

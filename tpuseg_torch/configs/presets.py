@@ -1,0 +1,76 @@
+"""YOLACT model presets (the port's copy of the YOLACT part of
+``tpuseg/configs/presets.py``, whose ConfigNode registry the port does not
+carry: plain dicts here).
+
+Upstream's ``--config=<name>_config`` chains (Yolact.jittor
+``data/config.py``): a preset is its parent's dict updated with its own
+keys. :func:`yolact_model_config` turns one into a
+:class:`~tpuseg_torch.models.yolact.YolactConfig`.
+"""
+from __future__ import annotations
+
+from tpuseg_torch.models.yolact import YolactConfig
+
+_SCALES = (24, 48, 96, 192, 384)
+
+YOLACT_BASE = {
+    "name": "yolact_base",
+    "backbone": "resnet101",
+    "max_size": 550,
+    "num_classes": 81,
+    "mask_dim": 32,
+    "fpn_channels": 256,
+    "conf_thresh": 0.05,
+    "nms_thresh": 0.5,
+    "nms_top_k": 200,
+    "max_num_detections": 100,
+}
+
+# YOLACT++: DCNv2 backbone, 3 sub-scales per level, non-square anchors,
+# mask rescoring
+_PLUS = {
+    "use_square_anchors": False,
+    "scales": tuple(tuple(s * 2 ** (j / 3.0) for j in range(3))
+                    for s in _SCALES),
+    "dcn_backbone": True,
+    "use_maskiou": True,
+}
+
+PRESETS = {
+    "yolact_base": YOLACT_BASE,
+    "yolact_resnet50": {**YOLACT_BASE, "name": "yolact_resnet50",
+                        "backbone": "resnet50"},
+    "yolact_darknet53": {**YOLACT_BASE, "name": "yolact_darknet53",
+                         "backbone": "darknet53"},
+    # the anchor scales follow the input size (upstream int(s / 550 * size))
+    "yolact_im400": {**YOLACT_BASE, "name": "yolact_im400", "max_size": 400,
+                     "scales": tuple(int(s / 550 * 400) for s in _SCALES)},
+    "yolact_im700": {**YOLACT_BASE, "name": "yolact_im700", "max_size": 700,
+                     "scales": tuple(int(s / 550 * 700) for s in _SCALES)},
+    "yolact_plus_base": {**YOLACT_BASE, **_PLUS, "name": "yolact_plus_base"},
+    # resnet50_dcnv2_backbone: R50++ makes every block of stages 2-4
+    # deformable
+    "yolact_plus_resnet50": {**YOLACT_BASE, **_PLUS,
+                             "name": "yolact_plus_resnet50",
+                             "backbone": "resnet50"},
+}
+
+
+def yolact_model_config(preset) -> YolactConfig:
+    """A preset (its name, with or without upstream's ``_config`` suffix,
+    or its dict) -> YolactConfig. DarkNet-53 is not ported yet."""
+    cfg = PRESETS[preset.removesuffix("_config")] if isinstance(
+        preset, str) else preset
+    if not cfg["backbone"].startswith("resnet"):
+        raise NotImplementedError(
+            f"{cfg['name']}: backbone {cfg['backbone']} is not ported yet")
+    return YolactConfig(
+        backbone=cfg["backbone"], img_size=cfg["max_size"],
+        num_classes=cfg["num_classes"], mask_dim=cfg["mask_dim"],
+        fpn_channels=cfg["fpn_channels"], conf_thresh=cfg["conf_thresh"],
+        nms_iou_thresh=cfg["nms_thresh"], nms_top_k=cfg["nms_top_k"],
+        max_num_detections=cfg["max_num_detections"],
+        scales=cfg.get("scales", _SCALES),
+        use_square_anchors=cfg.get("use_square_anchors", True),
+        dcn_backbone=cfg.get("dcn_backbone", False),
+        use_maskiou=cfg.get("use_maskiou", False))

@@ -110,6 +110,24 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
     return out.reshape(shp[:-1] + (4 * k,)) if k > 1 else out[..., 0, :]
 
 
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = boxes.unbind(-1)
+    hw, hh = w * 0.5, h * 0.5
+    return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)
+
+
+def ssd_decode(loc: torch.Tensor, priors_cxcywh: torch.Tensor,
+               variances=(0.1, 0.2)) -> torch.Tensor:
+    """YOLACT/SSD decode (yolact ``layers/box_utils.py::decode``): loc
+    deltas against (cx, cy, w, h) priors -> xyxy boxes, in the priors'
+    normalised units."""
+    v0, v1 = variances
+    pxy, pwh = priors_cxcywh[..., :2], priors_cxcywh[..., 2:]
+    cxy = pxy + loc[..., :2] * v0 * pwh
+    wh = pwh * torch.exp(loc[..., 2:] * v1)
+    return cxcywh_to_xyxy(torch.cat([cxy, wh], dim=-1))
+
+
 def masked_topk(scores: torch.Tensor, valid: torch.Tensor, k: int):
     """Top-k over the last axis with invalid entries ranked last.
 

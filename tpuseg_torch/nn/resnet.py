@@ -1,9 +1,15 @@
-"""ResNet body, detectron flavour (port of ``tpuseg/nn/resnet.py``).
+"""ResNet bodies (port of ``tpuseg/nn/resnet.py``), in two flavours.
 
-Caffe2-style: FrozenBatchNorm2d, the stride on the 1x1 conv
-(``STRIDE_IN_1X1=True``), stem ``conv1``/``bn1``. Attribute paths follow
-maskrcnn-benchmark (``stem.conv1``, ``layer1.0.conv1``,
+:class:`ResNet`, detectron's: Caffe2-style FrozenBatchNorm2d, the stride
+on the 1x1 conv (``STRIDE_IN_1X1=True``), stem ``conv1``/``bn1``. Attribute
+paths follow maskrcnn-benchmark (``stem.conv1``, ``layer1.0.conv1``,
 ``layer1.0.downsample.0``), so the upstream state_dict keys load as they are.
+
+:class:`ResNetBackbone`, YOLACT's (dbolya ``backbone.py``), torchvision
+style: BatchNorm2d (eps 1e-5, eval mode at inference), the stride on the
+3x3 conv, DCNv2 in place of the 3x3 conv of chosen blocks, attribute paths
+``conv1``, ``bn1``, ``layers.{s}.{b}.conv1/bn1/conv2[.conv_offset_mask]/
+bn2/conv3/bn3/downsample.{0,1}``.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
+from tpuseg_torch.ops.deform_conv import ModulatedDeformConv2d
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -92,5 +99,72 @@ class ResNet(nn.Module):
         feats = []
         for si in range(4):
             x = getattr(self, f"layer{si + 1}")(x)
+            feats.append(x)
+        return feats
+
+
+class BottleneckTV(nn.Module):
+    """torchvision bottleneck: the stride on the 3x3 conv, which is a
+    :class:`ModulatedDeformConv2d` (with a bias, as upstream's DCNv2) when
+    ``dcn``."""
+
+    def __init__(self, cin: int, mid: int, cout: int, stride: int,
+                 dcn: bool, eps: float):
+        super().__init__()
+        self.conv1 = _conv(cin, mid, 1)
+        self.bn1 = nn.BatchNorm2d(mid, eps=eps)
+        self.conv2 = (ModulatedDeformConv2d(mid, mid, 3, stride=stride)
+                      if dcn else _conv(mid, mid, 3, stride=stride, padding=1))
+        self.bn2 = nn.BatchNorm2d(mid, eps=eps)
+        self.conv3 = _conv(mid, cout, 1)
+        self.bn3 = nn.BatchNorm2d(cout, eps=eps)
+        self.downsample = None
+        if cin != cout or stride != 1:
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride=stride),
+                                            nn.BatchNorm2d(cout, eps=eps))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNetBackbone(nn.Module):
+    """YOLACT's ResNet: x [B,3,H,W] -> [c2 /4, c3 /8, c4 /16, c5 /32].
+
+    ``dcn_stages`` (0-based) and ``dcn_interval`` pick the deformable
+    blocks, as ``ResNetConfig.block_uses_dcn``: block ``b`` of stage ``s``
+    when ``s in dcn_stages and b % dcn_interval == 0`` (YOLACT++: stages
+    1-3, interval 1 for R-50, 3 for R-101). The BatchNorms run in eval mode
+    at inference, as the JAX ``batch_norm_inference`` does.
+    """
+
+    def __init__(self, depth: int = 50, dcn_stages=(), dcn_interval: int = 1,
+                 width: int = 64, eps: float = 1e-5):
+        super().__init__()
+        self.conv1 = _conv(3, width, 7, stride=2, padding=3)
+        self.bn1 = nn.BatchNorm2d(width, eps=eps)
+        layers, cin = [], width
+        for si, nblocks in enumerate(STAGE_BLOCKS[depth]):
+            mid = width * 2 ** si
+            cout = mid * 4
+            stride = 1 if si == 0 else 2
+            layers.append(nn.Sequential(*(
+                BottleneckTV(cin if bi == 0 else cout, mid, cout,
+                             stride if bi == 0 else 1,
+                             si in dcn_stages and bi % dcn_interval == 0, eps)
+                for bi in range(nblocks))))
+            cin = cout
+        self.layers = nn.ModuleList(layers)
+        self.out_channels = tuple(width * 2 ** si * 4 for si in range(4))
+
+    def forward(self, x: torch.Tensor) -> list:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        feats = []
+        for layer in self.layers:
+            x = layer(x)
             feats.append(x)
         return feats

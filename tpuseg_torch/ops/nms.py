@@ -104,3 +104,49 @@ def batched_nms_mask_batch(boxes: torch.Tensor, scores: torch.Tensor,
     offsets = class_ids.to(boxes.dtype) * (2.0 * max_coord)
     return nms_mask_batch(boxes + offsets[..., None], scores, iou_threshold,
                           valid=valid, to_remove=to_remove)
+
+
+def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                     class_ids: torch.Tensor, iou_threshold: float,
+                     valid: torch.Tensor | None = None,
+                     to_remove: float = 0.0) -> torch.Tensor:
+    """Class-aware NMS of one image ([N, 4], [N] -> keep [N]), or of each
+    image of a batch on its own ([B, N, 4] -> [B, N]): the JAX
+    ``batched_nms_mask``'s coordinate offset, taken from each image's own
+    boxes (``batched_nms_mask_batch`` takes it from the whole batch), so
+    every image's shifted boxes, and so its IoUs, are the reference's. One
+    :func:`nms_mask_batch` call, i.e. one kernel launch for the batch."""
+    if boxes.ndim == 2:
+        keep = batched_nms_mask(boxes[None], scores[None], class_ids[None],
+                                iou_threshold, None if valid is None
+                                else valid[None], to_remove)
+        return keep[0]
+    max_coord = boxes.abs().amax(dim=(1, 2)) + 1.0  # [B]
+    offsets = class_ids.to(boxes.dtype) * (2.0 * max_coord[:, None])
+    return nms_mask_batch(boxes + offsets[..., None], scores, iou_threshold,
+                          valid=valid, to_remove=to_remove)
+
+
+def fast_nms(boxes: torch.Tensor, scores: torch.Tensor,
+             iou_threshold: float = 0.5, top_k: int = 200):
+    """YOLACT Fast-NMS (``layers/functions/detection.py::fast_nms``),
+    batched: boxes [B, N, 4], per-class scores [B, C, N] (no background).
+
+    Per class the exact top ``top_k`` scores, ties to the lower index (a
+    stable sort, as ``jax.lax.top_k``; ``torch.topk`` does not promise
+    it), the IoU matrix of their boxes, its strict upper triangle, and a
+    box kept iff its largest IoU with a higher-scored box of its class is
+    <= ``iou_threshold``. Returns (boxes [B, C, K, 4], scores [B, C, K],
+    classes [B, C, K], prior index [B, C, K], keep [B, C, K]).
+    """
+    b, c, n = scores.shape
+    k = min(top_k, n)
+    top_scores, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_scores, idx = top_scores[..., :k], idx[..., :k]
+    cboxes = box_ops.gather_along_n(boxes, idx.reshape(b, c * k))
+    cboxes = cboxes.reshape(b, c, k, 4)
+    iou = box_ops.iou_matrix(cboxes, cboxes).triu(diagonal=1)
+    keep = iou.amax(dim=-2) <= iou_threshold
+    classes = torch.arange(c, device=scores.device)[None, :, None]
+    classes = classes.expand(b, c, k)
+    return cboxes, top_scores, classes, idx, keep

@@ -1,6 +1,8 @@
 """FPN multi-level RoIAlign (port of ``tpuseg/ops/sampling.py::
 multilevel_roi_align`` and ``ops/pallas/roi_align_pl.py::
-clamp_levels_to_window``).
+clamp_levels_to_window``) and DCNv2's bilinear point sampler
+(:func:`sample_points`: the kernel ``csrc/dcn_sample.cu`` for CUDA
+tensors, :func:`sample_points_plain` for CPU tensors).
 
 Features are NCHW, as everywhere in the port; pooled outputs are
 [N, C, P, P], the layout upstream's box and mask heads consume.
@@ -259,22 +261,27 @@ def _kernel_backward(grad_pooled, boxes, batch_idx, levels, feat_shapes,
         levels.to(torch.int32).contiguous(), feat_shapes, dtype, p, s, strides)
 
 
+def _backward_on(kernel: bool, grad_pooled, boxes, batch_idx, levels,
+                 feat_shapes, dtype, p, s, strides) -> tuple:
+    """The one place that picks the backward: the kernel if ``kernel``,
+    else :func:`multilevel_roi_align_backward_plain`."""
+    back = _kernel_backward if kernel else multilevel_roi_align_backward_plain
+    return back(grad_pooled, boxes, batch_idx, levels, feat_shapes, dtype, p,
+                s, strides)
+
+
 def multilevel_roi_align_backward(grad_pooled: torch.Tensor,
                                   boxes: torch.Tensor, batch_idx: torch.Tensor,
                                   levels: torch.Tensor, feat_shapes,
                                   dtype: torch.dtype, output_size: int = 7,
                                   sampling_ratio: int = 2,
-                                  strides=(4, 8, 16, 32),
-                                  kernel: bool | None = None) -> tuple:
-    """d(feats) of the FPN pooler: the backward kernel if ``kernel``, else
-    :func:`multilevel_roi_align_backward_plain`. ``kernel=None`` chooses by
-    the tensor (:func:`tpuseg_torch.kernels.use_kernel`); the pooler's
-    autograd Function passes the path its forward took."""
-    if kernel is None:
-        kernel = kernels.use_kernel(grad_pooled)
-    back = _kernel_backward if kernel else multilevel_roi_align_backward_plain
-    return back(grad_pooled, boxes, batch_idx, levels, feat_shapes, dtype,
-                output_size, sampling_ratio, strides)
+                                  strides=(4, 8, 16, 32)) -> tuple:
+    """d(feats) of the FPN pooler: the backward kernel for CUDA tensors,
+    :func:`multilevel_roi_align_backward_plain` for CPU tensors (see
+    :func:`tpuseg_torch.kernels.use_kernel`)."""
+    return _backward_on(kernels.use_kernel(grad_pooled), grad_pooled, boxes,
+                        batch_idx, levels, feat_shapes, dtype, output_size,
+                        sampling_ratio, strides)
 
 
 class _MultilevelRoIAlign(torch.autograd.Function):
@@ -298,8 +305,8 @@ class _MultilevelRoIAlign(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         boxes, batch_idx, levels = ctx.saved_tensors
-        grads = multilevel_roi_align_backward(grad, boxes, batch_idx, levels,
-                                              *ctx.meta, kernel=ctx.kernel)
+        grads = _backward_on(ctx.kernel, grad, boxes, batch_idx, levels,
+                             *ctx.meta)
         return (None,) * 6 + tuple(grads)
 
 
@@ -348,3 +355,70 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
                    x1[:, None] + grid[None, :] * _true_div(roi_w, p)[:, None])
     flat = features.permute(0, 2, 3, 1).reshape(b * h * w, c)
     return _pool(flat, lat, p, s, features.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Point sampling with zero padding (DCNv2's sampler)
+# ---------------------------------------------------------------------------
+
+# values in one [B, n, C] corner gather of the plain point sampler
+_POINT_CHUNK = 1 << 25
+
+
+def sample_points_plain(feats: torch.Tensor, sy: torch.Tensor,
+                        sx: torch.Tensor, m: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Bilinear samples with zero padding: feats [B, C, H, W], sample rows
+    and columns ``sy``, ``sx`` [B, S] (f32, pixel units), modulation ``m``
+    [B, S] or None -> [B, S, C] in the feature dtype, summed in f32.
+
+    The port of the JAX gather path (``_bilinear_corners_zeropad`` +
+    ``_gather_weighted``): corners (y0, x0), (y0, x1), (y1, x0), (y1, x1)
+    with y0 = floor(y), weights hy*hx, hy*lx, ly*hx, ly*lx, a corner
+    outside [0, H-1] x [0, W-1] weighted 0, no coordinate clamping. The
+    four products are added in that order, one after another, and the sum
+    is multiplied by ``m``: the order the kernel (``csrc/dcn_sample.cu``)
+    repeats. Chunked over S so that a corner gather stays within
+    ``_POINT_CHUNK`` values."""
+    b, c, h, w = feats.shape
+    acc_dt = _acc_dtype(feats.dtype)
+    flat = feats.permute(0, 2, 3, 1).reshape(b * h * w, c)
+    base = (torch.arange(b, device=feats.device) * (h * w))[:, None]
+    chunk = max(1, _POINT_CHUNK // max(b * c, 1))
+    out = []
+    for i in range(0, sy.shape[1], chunk):
+        y, x = sy[:, i:i + chunk], sx[:, i:i + chunk]
+        y0, x0 = torch.floor(y), torch.floor(x)
+        ly, lx = y - y0, x - x0
+        hy, hx = 1.0 - ly, 1.0 - lx
+        acc = None
+        for yc, wy in ((y0, hy), (y0 + 1, ly)):
+            for xc, wx in ((x0, hx), (x0 + 1, lx)):
+                inside = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
+                wgt = torch.where(inside, wy * wx, 0.0).to(acc_dt)
+                idx = (base + yc.clamp(0, h - 1).long() * w
+                       + xc.clamp(0, w - 1).long())
+                term = flat[idx].to(acc_dt) * wgt[..., None]
+                acc = term if acc is None else acc + term
+        if m is not None:
+            acc = acc * m[:, i:i + chunk, None].to(acc_dt)
+        out.append(acc.to(feats.dtype))
+    if not out:
+        return feats.new_zeros((b, 0, c))
+    return torch.cat(out, dim=1)
+
+
+def sample_points(feats: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                  m: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`sample_points_plain`'s function: the DCN sampling kernel
+    (``csrc/dcn_sample.cu``) for CUDA tensors, on the features in
+    ``torch.channels_last`` (a copy unless they are already), the plain
+    version for CPU tensors."""
+    if not kernels.use_kernel(feats):
+        return sample_points_plain(feats, sy, sx, m)
+    from tpuseg_torch.kernels import dcn as K
+
+    return K.sample_points(
+        feats.contiguous(memory_format=torch.channels_last),
+        sy.float().contiguous(), sx.float().contiguous(),
+        None if m is None else m.float().contiguous())

@@ -1,10 +1,12 @@
-"""The JAX package's Mask R-CNN param tree -> the port's state_dict.
+"""The JAX package's param trees -> the port's state_dicts (Mask R-CNN and
+YOLACT).
 
-The inverse of ``tpuseg/weights/detectron_map.py::from_torch_state``: conv
-kernels HWIO -> OIHW, linear weights [in, out] -> [out, in], fc6's rows
-back from the NHWC (H, W, C) flattening to upstream's (C, H, W), and the
-deconv kernel [kh, kw, in, out] -> [in, out, kh, kw]. Takes numpy arrays
-(``np.asarray`` of the JAX leaves), so this module needs no jax.
+The inverses of ``tpuseg/weights/detectron_map.py::from_torch_state`` and
+``tpuseg/weights/yolact_map.py::from_torch_state``: conv kernels HWIO ->
+OIHW, linear weights [in, out] -> [out, in], fc6's rows back from the NHWC
+(H, W, C) flattening to upstream's (C, H, W), and the deconv kernel
+[kh, kw, in, out] -> [in, out, kh, kw]. Takes numpy arrays (``np.asarray``
+of the JAX leaves), so this module needs no jax.
 """
 from __future__ import annotations
 
@@ -75,4 +77,59 @@ def state_dict_from_jax(params: dict, cfg) -> dict:
             mh["conv5_mask"]["bias"])
         _conv(sd, "roi_heads.mask.predictor.mask_fcn_logits",
               mh["mask_fcn_logits"])
+    return sd
+
+
+def _bn_tracked(sd: dict, name: str, p: dict) -> None:
+    """BatchNorm2d's tensors, with the step counter it carries."""
+    _bn(sd, name, p)
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def yolact_state_dict_from_jax(params: dict, cfg) -> dict:
+    """The JAX package's YOLACT param tree (``init_params`` /
+    ``yolact_map.from_torch_state``; numpy leaves) -> the port's
+    :class:`~tpuseg_torch.models.yolact.Yolact` state_dict, the keys of
+    ``tpuseg/weights/yolact_map.py::to_torch_state``. ``cfg``: the port's
+    or the JAX ``YolactConfig``."""
+    if not cfg.backbone.startswith("resnet"):
+        raise NotImplementedError(f"backbone {cfg.backbone}: not ported yet")
+    sd = {}
+    bb = params["backbone"]
+    _conv(sd, "backbone.conv1", bb["stem"]["conv"])
+    _bn_tracked(sd, "backbone.bn1", bb["stem"]["bn"])
+    for si in range(4):
+        for bi, blk in enumerate(bb[f"layer{si + 1}"]):
+            base = f"backbone.layers.{si}.{bi}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{base}.conv{i}", blk[f"conv{i}"])
+                _bn_tracked(sd, f"{base}.bn{i}", blk[f"bn{i}"])
+            if blk.get("conv2_offset") is not None:
+                _conv(sd, f"{base}.conv2.conv_offset_mask",
+                      blk["conv2_offset"])
+            if blk.get("downsample") is not None:
+                _conv(sd, f"{base}.downsample.0", blk["downsample"]["conv"])
+                _bn_tracked(sd, f"{base}.downsample.1",
+                            blk["downsample"]["bn"])
+    fpn = params["fpn"]
+    for i in range(3):
+        _conv(sd, f"fpn.lat_layers.{i}", fpn["lat"][i])
+        # the JAX tree applies pred[j] to P_{3+j}; pred_layers.0 is P5's
+        _conv(sd, f"fpn.pred_layers.{i}", fpn["pred"][2 - i])
+    for i in range(2):
+        _conv(sd, f"fpn.downsample_layers.{i}", fpn["down"][i])
+    for ci, idx in enumerate((0, 2, 4, 8, 10)):
+        _conv(sd, f"proto_net.{idx}", params["proto"][f"conv{ci}"])
+    head = "prediction_layers.0."
+    _conv(sd, head + "upfeature.0", params["pred"]["upfeature"])
+    for src, dst in (("bbox", "bbox_layer"), ("conf", "conf_layer"),
+                     ("mask", "mask_layer")):
+        _conv(sd, head + dst, params["pred"][src])
+    if "semantic" in params:
+        _conv(sd, "semantic_seg_conv", params["semantic"])
+    if "maskiou" in params:
+        for i in range(5):
+            _conv(sd, f"maskiou_net.maskiou_net.{2 * i}",
+                  params["maskiou"][f"conv{i}"])
+        _conv(sd, "maskiou_net.maskiou_net.10", params["maskiou"]["conv_last"])
     return sd
