@@ -21,29 +21,42 @@ Phases, one line each; any failure raises and exits non-zero:
      geometries of YOLACT++-550 R-50, B = 8 (f32 bit for bit; bf16 as
      RoIAlign's), grid_sample against the plain version (1e-4 max|ref|),
      and a zero-offset DCN against F.conv2d (TF32 off, 1e-4);
-  7. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
+  7. the DCN sampling backward kernel against its plain version at the
+     same geometries, with the offsets of phase 6 and with zero offsets
+     (every sample on an integer), f32 and bf16 (d feats as the RoIAlign
+     backward's; d sy, d sx and d m rtol 1e-5 / atol 1e-6 max|ref|);
+  8. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
      (full width, 81 classes, synthetic upstream-keyed weights from a numpy
      seed): launch counts per forward, sane outputs, and the heads run on
      one shared pyramid through the kernels and through the plain versions
      must agree detection for detection;
-  8. Mask R-CNN R-50-FPN training through do_train: 3 iterations at B = 2
+  9. Mask R-CNN R-50-FPN training through do_train: 3 iterations at B = 2
      on the 800x1344 canvas over an in-memory synthetic dataset, launch
      counts per step, finite losses, frozen stages still and the rest
      moved; then one step on one batch with the same draws and TF32 off,
      through the kernels and through the plain versions (losses rtol 1e-6,
      gradients rtol 1e-4 / atol 1e-6 max|g|);
-  9. YOLACT++-550 R-50-FPN inference through YolactPredictor on the card
+  10. YOLACT++-550 R-50-FPN inference through YolactPredictor on the card
      (full width, synthetic upstream-keyed weights with non-zero DCN
      offsets), f32 and bf16 at B = 1 and 8: 13 DCN sampling launches per
      forward, sane detections, and kernels vs plain detection for
      detection, also with greedy NMS (use_fast_nms=False, one NMS launch);
-  10. timings: each kernel against its plain version and its bound (DCN
-     sampling also against grid_sample), Mask R-CNN forward img/s at B = 1
-     and 2 and its training step at B = 2 on the 800x1344 canvas, YOLACT++
-     forward and run_batch img/s at B = 1 and 8 in f32 and bf16, through
-     both paths.
-Then one JSON line of kernel results, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.
+  11. YOLACT++-550 R-50-FPN training through yolact_train_loop.train: 3
+     iterations at B = 8 in f32 (TF32 convolutions, train-mode BatchNorm)
+     over an in-memory synthetic dataset of 480-640 px images with 5-15
+     elliptic masks each: 13 dcn_sample and 13 dcn_sample_bwd launches per
+     step, finite B/C/M/S/I, every parameter moved, every running
+     statistic updated, the checkpoint loads; then one step on one batch
+     with the same draws and TF32 off through the kernels and through the
+     plain versions (as phase 9);
+  12. timings: each kernel against its plain version and its bound (DCN
+     sampling also against grid_sample, its backward against
+     grid_sample's), Mask R-CNN forward img/s at B = 1 and 2 and its
+     training step at B = 2 on the 800x1344 canvas, YOLACT++ forward and
+     run_batch img/s at B = 1 and 8 in f32 and bf16, and its training step
+     at B = 8, through both paths, with the host's batch time apart.
+Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -61,14 +74,19 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch import kernels
-from tpuseg_torch.configs.presets import yolact_model_config
+from tpuseg_torch.configs.presets import (yolact_loss_config,
+                                          yolact_model_config)
 from tpuseg_torch.engine import detectron_train_loop as TL
+from tpuseg_torch.engine import yolact_train_loop as YTL
 from tpuseg_torch.engine.maskrcnn_engine import (MaskRCNNPredictor,
                                                  preprocess_image_bgr)
-from tpuseg_torch.engine.trainer import make_optimizer
+from tpuseg_torch.engine.trainer import (ckpt_path, make_optimizer,
+                                         make_yolact_optimizer,
+                                         yolact_lr_schedule)
 from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import yolact as YM
+from tpuseg_torch.models import yolact_loss as YLOSS
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops import sampling
@@ -86,7 +104,7 @@ STRIDES = (4, 8, 16, 32)
 CLS_SCORE_SCALE = 0.008
 TRAIN_STEPS = 3
 PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2,
-            "dcn_sample": 0}
+            "dcn_sample": 0, "dcn_sample_bwd": 0}
 # the backward's shapes at B = 2: the box pooler's 2 x 512 sampled rois at
 # P = 7 and the mask pooler's 2 x 128 at P = 14
 BWD_SHAPES = ((1024, 7), (256, 14))
@@ -94,6 +112,12 @@ PIXEL_VAR = 75.0 ** 2  # of textured_image's pixels less the pixel mean
 # DCN offset convs' weights: N(0, 1/fan) times this, so the offsets have a
 # standard deviation of 1.5-3.5 px (see synthetic_yolact_state_dict)
 OFFSET_SCALE = 2.0
+# the DCN offset convs of the training phase: offsets of ~0.2-0.4 px, off
+# the integers; at OFFSET_SCALE the first SGD step at upstream's warm-up lr
+# blows the losses up (B = 8 at 550: total 203, 17357, 4.9e7 in three
+# steps), since a random offset field of a few pixels is no state that
+# training from upstream's zero offsets passes through (measured on an H100)
+TRAIN_OFFSET_SCALE = 0.2
 # YOLACT's class-logit layer: N(0, 1/fan) times this spreads the best
 # class scores, so that few of them lie near the 0.05 gate
 CONF_SCALE = 3.0
@@ -114,6 +138,14 @@ DCN_PER_FORWARD = (1, 3, 1, 5, 1, 2)
 DCN_BATCH = 8
 DCN_OPS_PER_VALUE = 12  # per sample and channel: 4 corner weights, 4 mul,
 #                         3 add, the modulation
+DCN_BWD_OPS_PER_VALUE = 36  # per sample and channel: g * m, 4 corner
+# weights times it and 4 adds into d feats; 3 x (4 mul + 3 add) for the
+# d sy, d sx and d m terms; 3 mul + 3 add into their sums
+YOLACT_TRAIN_STEPS = 3
+YOLACT_BATCH = 8
+YOLACT_PER_STEP = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+                   "dcn_sample": sum(DCN_PER_FORWARD),
+                   "dcn_sample_bwd": sum(DCN_PER_FORWARD)}
 
 
 def log(msg: str) -> None:
@@ -354,7 +386,7 @@ def phase_roi_align_bwd(dev) -> dict:
     out.backward(grad)
     counts = kernels.launch_counts()
     if counts != {"nms": 0, "roi_align": 1, "roi_align_bwd": 1,
-                  "dcn_sample": 0}:
+                  "dcn_sample": 0, "dcn_sample_bwd": 0}:
         raise AssertionError(f"pooler forward + backward launched {counts}")
     err = bwd_error([f.grad for f in feats],
                     run_bwd(case, BWD_SHAPES[0][1], torch.float32),
@@ -370,10 +402,12 @@ def phase_roi_align_bwd(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dcn_case(dev, h: int, w: int, c: int, stride: int, dtype=torch.float32):
+def dcn_case(dev, h: int, w: int, c: int, stride: int, dtype=torch.float32,
+             zero: bool = False):
     """Features [B, C, H, W] (channels-last) and the points that
     deform_conv2d samples on them: offsets ~ N(0, 2^2) px, 1 % of them
-    pushed 8-25 px further out, modulation sigmoid(N(0, 1))."""
+    pushed 8-25 px further out (or, with ``zero``, no offsets: every sample
+    on an integer), modulation sigmoid(N(0, 1))."""
     g = torch.Generator().manual_seed(SEED + 10 + h + c + stride)
     b = DCN_BATCH
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
@@ -384,6 +418,8 @@ def dcn_case(dev, h: int, w: int, c: int, stride: int, dtype=torch.float32):
     n = int(far.sum())
     off[far] += (8.0 + 17.0 * torch.rand(n, generator=g)) * torch.sign(
         torch.randn(n, generator=g))
+    if zero:
+        off.zero_()
     mask = torch.sigmoid(torch.randn(b, 9, ho, wo, generator=g))
     return (feats, *dcn_sample_coords(off.to(dev), mask.to(dev), 3, stride,
                                       1, 1))
@@ -460,7 +496,83 @@ def phase_dcn(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: Mask R-CNN inference
+# phase 7: DCN sampling backward
+# ---------------------------------------------------------------------------
+
+
+def dcn_grad(dev, feats, sy) -> torch.Tensor:
+    """A gradient of the sampled values [B, S, C] ~ N(0, 1), in the feature
+    dtype."""
+    g = torch.Generator().manual_seed(SEED + 20 + feats.shape[1])
+    return torch.randn(feats.shape[0], sy.shape[1], feats.shape[1],
+                       generator=g).to(dev, feats.dtype)
+
+
+def run_dcn_bwd(grad, feats, sy, sx, m) -> tuple:
+    return sampling.sample_points_backward(grad, feats, sy, sx, m)
+
+
+def dcn_bwd_error(got, want, dtype, label: str) -> float:
+    """Max |got - want| over d feats, d sy, d sx, d m; raises past the
+    tolerance. d feats: f32 atol 1e-5 max|ref| / rtol 1e-5 (atomics add in
+    an order that changes from run to run); bf16 features: ``want`` is the
+    plain backward in f32 and the kernel's f32 sum is rounded once to
+    bf16, 2^-8 |ref| + 1e-3. d sy, d sx, d m (f32 for either dtype): rtol
+    1e-5 / atol 1e-6 max|ref| (the warp sums the channels in another
+    order)."""
+    worst = 0.0
+    for i, (a, w) in enumerate(zip(got, want)):
+        want_dt = dtype if i == 0 else torch.float32
+        if a.shape != w.shape or a.dtype != want_dt:
+            raise AssertionError(f"{label} output {i}: {a.dtype} "
+                                 f"{tuple(a.shape)}, want {want_dt} "
+                                 f"{tuple(w.shape)}")
+        err = (a.float() - w).abs()
+        scale = float(w.abs().max())
+        if i == 0 and dtype == torch.bfloat16:
+            tol = 2.0 ** -8 * w.abs() + 1e-3
+        elif i == 0:
+            tol = 1e-5 * w.abs() + 1e-5 * scale
+        else:
+            tol = 1e-5 * w.abs() + 1e-6 * scale
+        excess = float((err - tol).max())
+        if excess > 0:
+            raise AssertionError(f"{label} output {i}: error exceeds the "
+                                 f"tolerance by {excess}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_dcn_bwd(dev) -> dict:
+    """At each DCN geometry of YOLACT++-550 R-50, B = 8, with phase 6's
+    offsets and with none: the backward kernel against its plain version
+    (computed in f32 on the same values), f32 and bf16."""
+    worst, lines = 0.0, []
+    for h, w, c, st in DCN_SHAPES:
+        errs = []
+        for zero in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                feats, sy, sx, m = dcn_case(dev, h, w, c, st, dt, zero)
+                grad = dcn_grad(dev, feats, sy)
+                got = run_dcn_bwd(grad, feats, sy, sx, m)
+                with kernels.force_plain():
+                    want = run_dcn_bwd(grad.float(), feats.float(), sy, sx, m)
+                label = (f"dcn_sample_bwd {h}x{w}x{c} s{st} {str(dt)[6:]}"
+                         + (" zero offsets" if zero else ""))
+                err = dcn_bwd_error(got, want, dt, label)
+                if dt == torch.float32:
+                    worst = max(worst, err)
+                errs.append(f"{err:.3g}")
+        lines.append(f"{h}x{w}x{c} s{st}: max err f32 {errs[0]}, bf16 "
+                     f"{errs[1]}, zero offsets f32 {errs[2]}, bf16 {errs[3]}")
+    torch.cuda.synchronize()
+    log(f"[7 dcn_sample_bwd] B = {DCN_BATCH}, within tolerance of the plain "
+        "backward: " + "; ".join(lines))
+    return {"max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Mask R-CNN inference
 # ---------------------------------------------------------------------------
 
 
@@ -559,7 +671,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     per_forward = {"nms": 6, "roi_align": 2, "roi_align_bwd": 0,
-                   "dcn_sample": 0}
+                   "dcn_sample": 0, "dcn_sample_bwd": 0}
     if after_l != per_forward or counts != {k: 2 * v for k, v in per_forward.items()}:
         raise AssertionError(f"launches: {after_l} after the landscape batch, "
                              f"{counts} after the portrait image; want "
@@ -568,7 +680,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
             for r, img in zip(res_l + [res_p], landscape + [portrait])]
     if min(ndet) == 0:
         raise AssertionError(f"no detections: {ndet}")
-    log(f"[7 inference] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
+    log(f"[8 inference] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
         f"images: launches {counts} (6 NMS + 2 RoIAlign per forward), "
         f"detections {ndet}")
 
@@ -586,7 +698,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
-    log(f"[7 inference] heads on one pyramid, kernels vs plain: "
+    log(f"[8 inference] heads on one pyramid, kernels vs plain: "
         f"{compare_heads(got, want)}; valid proposals "
         f"{got['proposal_valid'].sum(1).tolist()}, class-box candidates "
         f"{got['candidate_valid'].sum(1).tolist()}")
@@ -605,8 +717,28 @@ def canvas_batch(pred: MaskRCNNPredictor, imgs: list):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: Mask R-CNN training
+# phase 9: Mask R-CNN training
 # ---------------------------------------------------------------------------
+
+
+def elliptic_instances(rng: np.random.Generator, img: np.ndarray,
+                       n_gt: int) -> tuple:
+    """(img, target): ``n_gt`` boxes of 4-33 % of the image's sides, each
+    with an elliptic mask inside it painted into ``img`` in a colour of its
+    own, classes 0..79, no crowd."""
+    h, w = img.shape[:2]
+    yy, xx = np.mgrid[:h, :w]
+    wh = rng.uniform(0.04, 0.33, (n_gt, 2)) * [w, h]
+    xy = rng.uniform(0, 1, (n_gt, 2)) * ([w, h] - wh)
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    masks = np.zeros((n_gt, h, w), np.uint8)
+    for j, (x1, y1, x2, y2) in enumerate(boxes):
+        cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
+        masks[j] = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+        img[masks[j] > 0] = rng.integers(0, 256, 3)
+    return img, {"boxes": boxes,
+                 "classes": rng.integers(0, 80, n_gt).astype(np.int64),
+                 "masks": masks, "iscrowd": np.zeros(n_gt, np.int64)}
 
 
 class SyntheticDataset:
@@ -623,28 +755,30 @@ class SyntheticDataset:
         self.coco = SimpleNamespace(
             imgs={i: {"width": w, "height": h} for i in self.image_ids})
         self._data = {}
-        yy, xx = np.mgrid[:h, :w]
         for i in self.image_ids:
-            img = textured_image(rng, h, w)
-            wh = rng.uniform(0.04, 0.33, (n_gt, 2)) * [w, h]
-            xy = rng.uniform(0, 1, (n_gt, 2)) * ([w, h] - wh)
-            boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
-            masks = np.zeros((n_gt, h, w), np.uint8)
-            for j, (x1, y1, x2, y2) in enumerate(boxes):
-                cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
-                masks[j] = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
-                img[masks[j] > 0] = rng.integers(0, 256, 3)
-            self._data[i] = (img, {
-                "boxes": boxes,
-                "classes": rng.integers(0, 80, n_gt).astype(np.int64),
-                "masks": masks,
-                "iscrowd": np.zeros(n_gt, np.int64)})
+            self._data[i] = elliptic_instances(rng, textured_image(rng, h, w),
+                                               n_gt)
 
     def load_image(self, iid) -> np.ndarray:
         return self._data[iid][0].copy()
 
     def load_target(self, iid) -> dict:
         return {k: v.copy() for k, v in self._data[iid][1].items()}
+
+
+class SyntheticYolactDataset(SyntheticDataset):
+    """In memory, with the interface yolact_train_loop.train reads:
+    textured RGB images of 480-640 px a side (height and width drawn
+    apart), each with 5-15 elliptic masks painted in."""
+
+    def __init__(self, seed: int, n_images: int = YOLACT_BATCH):
+        rng = np.random.default_rng(seed)
+        self.image_ids = list(range(1, n_images + 1))
+        self._data = {}
+        for i in self.image_ids:
+            h, w = (int(v) for v in rng.integers(480, 641, 2))
+            self._data[i] = elliptic_instances(
+                rng, textured_image(rng, h, w), int(rng.integers(5, 16)))
 
 
 def frozen_names(model) -> list:
@@ -672,19 +806,23 @@ def step_grads(model, images, image_hw, targets, seed: int) -> tuple:
     return {k: float(v.detach()) for k, v in losses.items()}, grads
 
 
-def compare_steps(got: tuple, want: tuple) -> str:
+def compare_steps(got: tuple, want: tuple, atol: float = 1e-6,
+                  split: str | None = None) -> str:
     """Kernel path vs plain path of one step: losses rtol 1e-6 (the forward
-    is the same: K1 and K2 equal their plain versions bit for bit), every
-    gradient rtol 1e-4 / atol 1e-6 max|g| (the backward kernel adds with
-    atomics, in an order that changes from run to run, as does the plain
-    version's index_add_ on the card)."""
+    is the same: the forward kernels equal their plain versions bit for
+    bit), every gradient rtol 1e-4 / atol ``atol`` max|g| (the backward
+    kernels add with atomics, in an order that changes from run to run, as
+    does the plain versions' index_add_ on the card). A failure names the
+    three gradients furthest past the tolerance. With ``split``, the
+    largest error of the gradients whose name holds it is reported apart
+    from the rest's."""
     (gl, gg), (wl, wg) = got, want
     for k, w in wl.items():
         if not abs(gl[k] - w) <= 1e-6 * abs(w):
             raise AssertionError(f"loss {k}: kernels {gl[k]!r}, plain {w!r}")
     if sorted(gg) != sorted(wg):
         raise AssertionError("the two paths give gradients to other parameters")
-    worst, zero = 0.0, []
+    worst, zero, bad = {True: 0.0, False: 0.0}, [], []
     for name, w in wg.items():
         scale = float(w.abs().max())
         if scale == 0.0:
@@ -693,15 +831,22 @@ def compare_steps(got: tuple, want: tuple) -> str:
                 raise AssertionError(f"{name}: plain gradient 0, kernels not")
             continue
         err = (gg[name] - w).abs()
-        excess = float((err - (1e-4 * w.abs() + 1e-6 * scale)).max())
+        excess = float((err - (1e-4 * w.abs() + atol * scale)).max())
         if excess > 0:
-            raise AssertionError(f"gradient {name}: error exceeds rtol 1e-4 / "
-                                 f"atol 1e-6 max|g| by {excess}")
-        worst = max(worst, float(err.max()) / scale)
+            bad.append((excess / scale, name, float(err.max()) / scale))
+        apart = split is not None and split in name
+        worst[apart] = max(worst[apart], float(err.max()) / scale)
+    if bad:
+        raise AssertionError(
+            f"gradients past rtol 1e-4 / atol {atol:g} max|g| (excess and "
+            "largest error, both of max|g|): " + "; ".join(
+                f"{n} {e:.3g} {m:.3g}" for e, n, m in sorted(bad)[::-1][:3]))
+    largest = (f"largest error {worst[False]:.3g} of max|g|" if split is None
+               else f"largest error of max|g|: {worst[True]:.3g} in the "
+               f"{split} gradients, {worst[False]:.3g} in the others")
     return (f"losses equal to rtol 1e-6 ({', '.join(f'{k} {v:.6g}' for k, v in gl.items())}); "
-            f"{len(wg)} gradients within rtol 1e-4 / atol 1e-6 max|g|, "
-            f"largest error {worst:.3g} of max|g|; zero on both paths: "
-            f"{len(zero)}")
+            f"{len(wg)} gradients within rtol 1e-4 / atol {atol:g} max|g|, "
+            f"{largest}; zero on both paths: {len(zero)}")
 
 
 def phase_train(dev, tmp: Path) -> dict:
@@ -743,7 +888,7 @@ def phase_train(dev, tmp: Path) -> dict:
     fresh = M.build_model(cfg)
     ckpt = torch.load(tmp / f"model_{TRAIN_STEPS:07d}.pth", weights_only=True)
     fresh.load_state_dict(ckpt["model"], strict=True)
-    log(f"[8 train] do_train {it} iterations at B = 2 on the 800x1344 canvas: "
+    log(f"[9 train] do_train {it} iterations at B = 2 on the 800x1344 canvas: "
         f"launches {counts} ({PER_STEP} per step); total loss "
         f"{[round(h['total'], 4) for h in history]}; {len(frozen)} frozen "
         f"tensors still, {len(trainable)} trainable parameters moved; "
@@ -767,23 +912,25 @@ def phase_train(dev, tmp: Path) -> dict:
         torch.backends.cudnn.allow_tf32 = prev_tf32
     if path_counts != PER_STEP:
         raise AssertionError(f"kernel-path step launched {path_counts}")
-    log(f"[8 train] one step, kernels vs plain (cudnn.allow_tf32 False, "
+    log(f"[9 train] one step, kernels vs plain (cudnn.allow_tf32 False, "
         f"matmul precision {torch.get_float32_matmul_precision()}): "
         f"{compare_steps(got, want)}")
     return {"model": model, "batch": batch, "counts": counts}
 
 
 # ---------------------------------------------------------------------------
-# phase 9: YOLACT++ inference
+# phase 10: YOLACT++ inference
 # ---------------------------------------------------------------------------
 
 
-def synthetic_yolact_state_dict(model: torch.nn.Module, seed: int) -> dict:
+def synthetic_yolact_state_dict(model: torch.nn.Module, seed: int,
+                                offset_scale: float = OFFSET_SCALE) -> dict:
     """Upstream-keyed random YOLACT weights from a numpy seed: BN stats
     near 1, conv weights N(0, 1/fan), small biases. The DCN offset convs
-    get OFFSET_SCALE times that (upstream zero-initialises them, and zero
-    offsets would make every DCN a plain conv): their offsets span a few
-    pixels with fractional parts and some taps leave the map."""
+    get ``offset_scale`` times that (upstream zero-initialises them, and
+    zero offsets would make every DCN a plain conv): at OFFSET_SCALE their
+    offsets span a few pixels with fractional parts and some taps leave
+    the map."""
     rng = np.random.default_rng(seed)
     sd = {}
     for k, v in model.state_dict().items():
@@ -797,7 +944,7 @@ def synthetic_yolact_state_dict(model: torch.nn.Module, seed: int) -> dict:
         elif k.endswith(".weight"):
             a = rng.standard_normal(shape) * np.prod(shape[1:]) ** -0.5
             if "conv_offset_mask" in k:
-                a *= OFFSET_SCALE
+                a *= offset_scale
             elif k.endswith("conf_layer.weight"):
                 a *= CONF_SCALE
         elif k.endswith("running_mean"):
@@ -911,7 +1058,7 @@ def phase_yolact(dev) -> dict:
     preds = {dt: YolactPredictor(cfg, state_dict=sd, dtype=dt, device=dev)
              for dt in (torch.float32, torch.bfloat16)}
     per_forward = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
-                   "dcn_sample": sum(DCN_PER_FORWARD)}
+                   "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0}
     lines = []
     for dt, pred in preds.items():
         for b in (1, 8):
@@ -948,7 +1095,7 @@ def phase_yolact(dev) -> dict:
     if greedy_counts["nms"] != 1:
         raise AssertionError(f"greedy-NMS detect launched {greedy_counts}")
     err_greedy = compare_yolact(got, want)
-    log(f"[9 yolact] YolactPredictor, yolact_plus_resnet50 at "
+    log(f"[10 yolact] YolactPredictor, yolact_plus_resnet50 at "
         f"{cfg.img_size}x{cfg.img_size} "
         f"(background logit +{shift:.2f}): {per_forward['dcn_sample']} "
         f"dcn_sample launches per forward; " + "; ".join(lines)
@@ -961,7 +1108,195 @@ def phase_yolact(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: timing
+# phase 11: YOLACT++ training
+# ---------------------------------------------------------------------------
+
+
+def yolact_step_grads(model, images, targets, priors, draws, loss_cfg) -> tuple:
+    """Losses and parameter gradients of one YOLACT training forward +
+    backward on the given mask-subset draws."""
+    model.zero_grad(set_to_none=True)
+    preds, sem = model.forward_train(images)
+    losses = YLOSS.total_loss(preds, sem, targets, priors, draws, loss_cfg,
+                              maskiou_net=model.maskiou_net)
+    losses["total"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def phase_yolact_train(dev, tmp: Path) -> dict:
+    """yolact_plus_resnet50 at 550 through yolact_train_loop.train, B = 8
+    (train-mode BatchNorm), f32 with TF32 convolutions, synthetic
+    upstream-keyed weights with non-zero DCN offsets (TRAIN_OFFSET_SCALE)."""
+    name = "yolact_plus_resnet50"
+    cfg = yolact_model_config(name)
+    loss_cfg = yolact_loss_config(name)
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(
+        model, SEED + 11, offset_scale=TRAIN_OFFSET_SCALE), strict=True)
+    data = SyntheticYolactDataset(SEED + 11)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, it, history = YTL.train(
+        data, cfg, batch_size=YOLACT_BATCH, max_steps=YOLACT_TRAIN_STEPS,
+        save_every=YOLACT_TRAIN_STEPS, save_folder=str(tmp), cfg_name=name,
+        log_every=1, loss_cfg=loss_cfg, model=model, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {k: YOLACT_TRAIN_STEPS * v for k, v in YOLACT_PER_STEP.items()}
+    if it != YOLACT_TRAIN_STEPS or counts != want:
+        raise AssertionError(f"{it} YOLACT iterations launched {counts}; want "
+                             f"{YOLACT_TRAIN_STEPS} launching {want}")
+    keys = ("B", "C", "M", "S", "I", "total")
+    bad = [h for h in history
+           if tuple(h) != keys or not all(np.isfinite(v) for v in h.values())]
+    if bad or len(history) != YOLACT_TRAIN_STEPS:
+        raise AssertionError(f"YOLACT losses not finite or incomplete: {bad}")
+    after = model.state_dict()
+    after = {k: v.cpu() for k, v in after.items()}
+    still = [n for n, _ in model.named_parameters()
+             if torch.equal(after[n], before[n])]
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    stale = [k for k in stats if torch.equal(after[k], before[k])]
+    if still or stale or model.freeze_bn:
+        raise AssertionError(f"parameters that did not move: {still}; "
+                             f"running statistics not updated: {stale}")
+    path = ckpt_path(str(tmp), name, it // (len(data.image_ids)
+                                            // YOLACT_BATCH), it)
+    fresh = YM.build_model(cfg)
+    fresh.load_state_dict(torch.load(path, weights_only=True), strict=True)
+    n_params = sum(1 for _ in model.parameters())
+    log(f"[11 yolact_train] train() {it} iterations at B = {YOLACT_BATCH}, "
+        f"{cfg.img_size}x{cfg.img_size}, f32 with TF32 convolutions, "
+        f"train-mode BatchNorm, in {seconds:.1f} s: launches {counts} "
+        f"({YOLACT_PER_STEP['dcn_sample']} + "
+        f"{YOLACT_PER_STEP['dcn_sample_bwd']} per step); losses "
+        + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in h.items())
+                    for h in history)
+        + f"; all {n_params} parameters moved, {len(stats)} running "
+        f"statistics updated; {Path(path).name} loads with strict=True")
+
+    # one step on one batch through the kernels and the plain versions,
+    # with the same draws; TF32 off and deterministic cuDNN, so that only
+    # the kernels differ: with frozen BatchNorm (train() below a batch of
+    # 6) at phase 9's tolerance, and in train mode against the spread of
+    # the kernel path between two runs
+    rng = np.random.default_rng(SEED + 12)
+    images, targets = YTL.batch_to_device(
+        *next(YTL.batch_iterator(data, cfg, rng, YOLACT_BATCH)), dev)
+    priors = torch.from_numpy(YM.make_priors_np(cfg)).to(dev)
+    draws = torch.rand((YOLACT_BATCH, priors.shape[0]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 13))
+    batch = (images, targets, priors, draws, loss_cfg)
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        model.freeze_bn = True
+        model.train()
+        kernels.reset_launch_counts()
+        got = yolact_step_grads(model, *batch)
+        path_counts = kernels.launch_counts()
+        with kernels.force_plain():
+            want = yolact_step_grads(model, *batch)
+        model.freeze_bn = False
+        model.train()
+        runs = [yolact_step_grads(model, *batch) for _ in range(2)]
+        with kernels.force_plain():
+            runs += [yolact_step_grads(model, *batch) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = prev
+    if path_counts != YOLACT_PER_STEP:
+        raise AssertionError(f"YOLACT kernel-path step launched {path_counts}")
+    # atol 1e-5 max|g|, not phase 9's 1e-6: an offset conv's gradient sums,
+    # over the 38 088 positions of a B = 8 layer2 map, coordinate gradients
+    # that are themselves sums over 128-512 channels, which the backward
+    # kernel's warps take in another order than the plain torch.sum
+    # (measured on an H100: layer2 block 2's offset conv missed 1e-6 max|g|
+    # by 1.9e-8)
+    log(f"[11 yolact_train] one step, frozen BatchNorm, kernels vs plain "
+        f"(cudnn.allow_tf32 False, cudnn.deterministic True, matmul "
+        f"precision {torch.get_float32_matmul_precision()}): "
+        f"{compare_steps(got, want, atol=1e-5, split='conv_offset_mask')}")
+    log(f"[11 yolact_train] one step, train-mode BatchNorm: "
+        f"{compare_train_mode(*runs)}")
+    return {"model": model, "data": data, "cfg": cfg, "loss_cfg": loss_cfg,
+            "batch": (images, targets), "priors": priors, "draws": draws,
+            "counts": counts}
+
+
+def rel_l2(a: dict, b: dict) -> dict:
+    """Per gradient, ||a - b|| / ||b|| (0 where b is 0 and a too)."""
+    out = {}
+    for name, w in b.items():
+        norm = float(w.norm())
+        diff = float((a[name] - w).norm())
+        out[name] = diff / norm if norm else (0.0 if diff == 0 else np.inf)
+    return out
+
+
+def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple) -> str:
+    """Kernels and plain, two runs each, with train-mode BatchNorm: losses
+    equal to rtol 1e-6 (the forward is the same); per gradient, the
+    relative L2 error between the kernel and the plain path within ten
+    times the spread of either path between its own two runs, but no less
+    than 1e-3 and no more than 1e-2. Train-mode BatchNorm's backward
+    subtracts, per channel, the mean of the gradient and of its product
+    with the normalised input; that difference of nearly equal sums
+    magnifies the rounding of the atomic adds, whose order changes from run
+    to run in both backward versions. A kernel that dropped or misplaced a
+    term would be off by O(1). Left out by rule: the gradients that are
+    zero to rounding on the plain path (max|g| below 1e-6 of the largest:
+    the bias of a conv in front of a train-mode BatchNorm, which its batch
+    mean cancels); the kernel path's must be too."""
+    (l1, g1), (l2, g2), (lp, gp), (_, gp2) = k1, k2, p1, p2
+    for k, w in lp.items():
+        for got in (l1, l2):
+            if not abs(got[k] - w) <= 1e-6 * abs(w):
+                raise AssertionError(f"train-mode loss {k}: kernels "
+                                     f"{got[k]!r}, plain {w!r}")
+    if sorted(g1) != sorted(gp):
+        raise AssertionError("the two paths give gradients to other parameters")
+    top = max(float(w.abs().max()) for w in gp.values())
+    zero = [n for n, w in gp.items() if float(w.abs().max()) <= 1e-6 * top]
+    loud = [n for n in zero if float(g1[n].abs().max()) > 1e-6 * top]
+    if loud:
+        raise AssertionError(f"train-mode gradients zero to rounding on the "
+                             f"plain path but not on the kernel path: {loud}")
+    live = {n: w for n, w in gp.items() if n not in zero}
+    kp = rel_l2(g1, live)
+    kk = rel_l2(g1, {n: g2[n] for n in live})
+    pp = rel_l2(gp2, live)
+    limit = {n: min(max(1e-3, 10 * max(kk[n], pp[n])), 1e-2) for n in kp}
+    bad = sorted(((kp[n] / limit[n], n) for n in kp if kp[n] > limit[n]),
+                 reverse=True)
+    if bad:
+        raise AssertionError("train-mode gradients past the limit: " + "; ".join(
+            f"{n} kernels vs plain {kp[n]:.3g}, kernels {kk[n]:.3g}, plain "
+            f"{pp[n]:.3g}" for _, n in bad[:3]))
+    worst = max(kp, key=kp.get)
+
+    def med(d):
+        return float(np.median(list(d.values())))
+
+    return (f"losses equal to rtol 1e-6 in both kernel runs; {len(zero)} "
+            f"gradients zero to rounding on both paths (max|g| <= 1e-6 of "
+            f"{top:.4g}); relative L2 error of the other {len(live)}, kernels "
+            f"vs plain: median {med(kp):.3g}, largest {kp[worst]:.3g} "
+            f"({worst}, limit {limit[worst]:.3g}); kernels vs kernels: median "
+            f"{med(kk):.3g}, largest {max(kk.values()):.3g}; plain vs plain: "
+            f"median {med(pp):.3g}, largest {max(pp.values()):.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: timing
 # ---------------------------------------------------------------------------
 
 
@@ -1086,11 +1421,11 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
     for name, t in times.items():
         if name.startswith("forward"):
             b = int(name.split("B=")[1][0])
-            log(f"[10 timing] {name}: kernels {1e3 * b / t[0]:.2f} img/s "
+            log(f"[12 timing] {name}: kernels {1e3 * b / t[0]:.2f} img/s "
                 f"({t[0]:.3f} ms), plain {1e3 * b / t[1]:.2f} img/s "
                 f"({t[1]:.3f} ms) [{card}]")
         else:
-            log(f"[10 timing] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
+            log(f"[12 timing] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
                 f"ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
 
     # the training step (forward, backward, SGD) at B = 2 with TF32
@@ -1108,7 +1443,7 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
     k2 = cuda_time_ms(step, iters=5, warmup=0)
     k = (k1 + k2) / 2
     times["train step B=2 800x1344"] = (k, p)
-    log(f"[10 timing] train step B=2 800x1344: kernels {k:.3f} ms "
+    log(f"[12 timing] train step B=2 800x1344: kernels {k:.3f} ms "
         f"({1e3 / k:.3f} it/s; two runs of 5: {k1:.3f}, {k2:.3f}), plain "
         f"{p:.3f} ms ({1e3 / p:.3f} it/s, one step) [{card}]")
     return times
@@ -1158,7 +1493,7 @@ def time_yolact(dev, yolact: dict, card: str) -> dict:
                 name = (f"dcn_sample {str(dt)[6:]} B={DCN_BATCH} "
                         f"{h}x{w}x{c} s{st}")
                 times[name] = (k, p) + dcn_bound(feats, sy, sx) + (lib,)
-                log(f"[10 timing] {name}: kernel {k:.4f} ms, plain {p:.4f} "
+                log(f"[12 timing] {name}: kernel {k:.4f} ms, plain {p:.4f} "
                     f"ms, bound {times[name][2]:.4g} ms by "
                     f"{times[name][3]}, grid_sample {lib:.4f} ms [{card}]")
         images = torch.from_numpy(yolact["images"]).to(dev)
@@ -1171,11 +1506,93 @@ def time_yolact(dev, yolact: dict, card: str) -> dict:
                     k, p = time_pair(fn, iters=5)
                     name = f"yolact {label} {str(dt)[6:]} B={b}"
                     times[name] = (k, p)
-                    log(f"[10 timing] YOLACT++ {label} {str(dt)[6:]} B={b} "
+                    log(f"[12 timing] YOLACT++ {label} {str(dt)[6:]} B={b} "
                         f"{images.shape[1]}x{images.shape[2]}: kernels "
                         f"{1e3 * b / k:.2f} img/s ({k:.3f} "
                         f"ms), plain {1e3 * b / p:.2f} img/s ({p:.3f} ms) "
                         f"[{card}]")
+    return times
+
+
+def grid_sample_backward(feats, sy, sx, m, grad):
+    """The sampler's backward as PyTorch's: grid_sample's backward
+    (align_corners=True, zeros) for the features and the grid, through the
+    modulation's product; a closure to time (the graph is kept)."""
+    f = feats.detach().requires_grad_()
+    h, w = feats.shape[2:]
+    grid = torch.stack([2.0 * sx / (w - 1) - 1.0, 2.0 * sy / (h - 1) - 1.0],
+                       -1)[:, :, None, :].requires_grad_()
+    mm = m.detach().requires_grad_()
+    out = F.grid_sample(f, grid.to(feats.dtype), mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    out = out[..., 0].transpose(1, 2) * mm[..., None].to(feats.dtype)
+    return lambda: torch.autograd.grad(out, (f, grid, mm), grad,
+                                       retain_graph=True)
+
+
+def dcn_bwd_bound(feats, sy, sx) -> tuple:
+    """The [B, S, C] gradient, the touched cells' C channels and sy/sx/m
+    read; d feats [B, C, H, W] (every cell) and d sy/d sx/d m written;
+    DCN_BWD_OPS_PER_VALUE f32 operations per sample and channel."""
+    b, c, h, w = feats.shape
+    s, item = sy.shape[1], feats.element_size()
+    nbytes = (b * s * c * item + dcn_touched_cells(sy, sx, h, w) * c * item
+              + b * s * 3 * 4 + b * h * w * c * item + b * s * 3 * 4)
+    return bound(nbytes, DCN_BWD_OPS_PER_VALUE * b * s * c)
+
+
+def time_yolact_train(dev, yt: dict, card: str) -> dict:
+    """dcn_sample_bwd against its plain version, its bound and
+    grid_sample's backward at each DCN geometry (B = 8, f32 and bf16); the
+    host's time to build one B = 8 batch; the YOLACT++ training step at
+    B = 8 (forward, backward, SGD; TF32 convolutions as train() runs it),
+    kernels against plain."""
+    times = {}
+    for h, w, c, st in DCN_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            feats, sy, sx, m = dcn_case(dev, h, w, c, st, dt)
+            grad = dcn_grad(dev, feats, sy)
+            k, p = time_pair(lambda: run_dcn_bwd(grad, feats, sy, sx, m),
+                             iters=10)
+            lib = cuda_time_ms(grid_sample_backward(feats, sy, sx, m, grad),
+                               iters=10)
+            name = (f"dcn_sample_bwd {str(dt)[6:]} B={DCN_BATCH} "
+                    f"{h}x{w}x{c} s{st}")
+            times[name] = (k, p) + dcn_bwd_bound(feats, sy, sx) + (lib,)
+            log(f"[12 timing] {name}: kernel {k:.4f} ms, plain {p:.4f} ms, "
+                f"bound {times[name][2]:.4g} ms by {times[name][3]}, "
+                f"grid_sample backward {lib:.4f} ms [{card}]")
+    cfg, data = yt["cfg"], yt["data"]
+    batches = YTL.batch_iterator(data, cfg, np.random.default_rng(SEED + 14),
+                                 YOLACT_BATCH)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        YTL.batch_to_device(*next(batches), dev)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / 3 * 1e3
+    times[f"yolact host batch B={YOLACT_BATCH}"] = (host,)
+    log(f"[12 timing] YOLACT++ host batch (augment + targets + upload) "
+        f"B={YOLACT_BATCH}: {host:.1f} ms on the host clock, mean of 3")
+    model = yt["model"]
+    opt = make_yolact_optimizer(model)
+    lr = yolact_lr_schedule()(0)
+    images, targets = yt["batch"]
+
+    def step():
+        YTL.train_step(model, opt, lr, images, targets, yt["priors"],
+                       yt["draws"], yt["loss_cfg"])
+
+    k1 = cuda_time_ms(step, iters=5, warmup=2)
+    with kernels.force_plain():
+        p = cuda_time_ms(step, iters=2, warmup=1)
+    k2 = cuda_time_ms(step, iters=5, warmup=0)
+    k = (k1 + k2) / 2
+    times[f"yolact train step B={YOLACT_BATCH}"] = (k, p)
+    log(f"[12 timing] YOLACT++ train step B={YOLACT_BATCH} "
+        f"{cfg.img_size}x{cfg.img_size}: kernels {k:.3f} ms "
+        f"({1e3 * YOLACT_BATCH / k:.2f} img/s; two runs of 5: {k1:.3f}, "
+        f"{k2:.3f}), plain {p:.3f} ms ({1e3 * YOLACT_BATCH / p:.2f} img/s, "
+        f"mean of 2) [{card}]")
     return times
 
 
@@ -1186,13 +1603,14 @@ def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
             "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
             # no PyTorch call computes NMS or multi-level RoIAlign (or its
             # gradient) without torchvision, which is not a dependency;
-            # grid_sample computes DCN sampling
+            # grid_sample computes DCN sampling, its backward the sampler's
             "library_ms": t[4] if len(t) > 4 else None}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this smoke test needs a GPU")
+    start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     log(f"[1 card] {card}; torch {torch.__version__}, CUDA "
@@ -1212,20 +1630,26 @@ def main() -> int:
     roi_res = phase_roi_align(dev)
     bwd_res = phase_roi_align_bwd(dev)
     dcn_res = phase_dcn(dev)
+    dcn_bwd_res = phase_dcn_bwd(dev)
     with tempfile.TemporaryDirectory() as tmp:
         pred, infer_counts = phase_slice(dev, Path(tmp))
         train = phase_train(dev, Path(tmp))
-    yolact = phase_yolact(dev)
+        yolact = phase_yolact(dev)
+        yolact_train = phase_yolact_train(dev, Path(tmp))
     times = phase_timing(dev, pred, train, card)
     times.update(time_yolact(dev, yolact, card))
+    times.update(time_yolact_train(dev, yolact_train, card))
 
     def launches(name):
-        """Per path: the Mask R-CNN forward, three training steps, one
-        YOLACT++ forward."""
+        """Per path: the Mask R-CNN forward, three Mask R-CNN training
+        steps, one YOLACT++ forward, three YOLACT++ training steps."""
         return {"inference": infer_counts[name],
                 "training": train["counts"][name],
-                "yolact_inference": yolact["counts"][name]}
+                "yolact_inference": yolact["counts"][name],
+                "yolact_training": yolact_train["counts"][name]}
 
+    log(f"[13 total] {time.perf_counter() - start:.1f} s from the start of "
+        "main to the end of the timings (the kernels' build included)")
     log(json.dumps({"kernels": [
         kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
                      "tpuseg/ops/pallas/nms_pl.py:138", launches("nms"),
@@ -1244,6 +1668,11 @@ def main() -> int:
                       "tpuseg/ops/pallas/dcn_pl.py:212"],
                      launches("dcn_sample"), dcn_res["max_abs_err"],
                      times[f"dcn_sample float32 B={DCN_BATCH} 69x69x128 s1"]),
+        kernel_entry("dcn_sample_bwd", "tpuseg_torch/csrc/dcn_sample_bwd.cu",
+                     "tpuseg/ops/pallas/dcn_pl.py:311",
+                     launches("dcn_sample_bwd"), dcn_bwd_res["max_abs_err"],
+                     times[f"dcn_sample_bwd float32 B={DCN_BATCH} "
+                           "69x69x128 s1"]),
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ import torch
 from tpuseg_torch import kernels
 from tpuseg_torch.models.maskrcnn import assign_levels
 from tpuseg_torch.ops import nms as nms_ops
-from tpuseg_torch.ops import sampling
+from tpuseg_torch.ops import deform_conv, sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -127,7 +127,8 @@ def test_pooler_autograd_uses_both_kernels():
     out = sampling.multilevel_roi_align(feats, boxes, bidx, levels, 7, 2)
     (out * dp).sum().backward()
     assert kernels.launch_counts() == {"nms": 0, "roi_align": 1,
-                                       "roi_align_bwd": 1, "dcn_sample": 0}
+                                       "roi_align_bwd": 1, "dcn_sample": 0,
+                                       "dcn_sample_bwd": 0}
     want = sampling.multilevel_roi_align_backward(
         dp, boxes, bidx, levels, [f.shape for f in feats], torch.float32, 7, 2)
     _assert_bwd_close([f.grad for f in feats], want, torch.float32)
@@ -174,6 +175,107 @@ def test_dcn_sample_kernel_matches_plain(c, modulated):
                  <= 2.0 ** -8 * ref.abs() + 1e-3).all())
 
 
+def _assert_points_bwd_close(got, want, dtype):
+    """d feats: f32 atol 1e-5 max|ref| / rtol 1e-5 (atomics add in an order
+    that changes from run to run); bf16 features: the one rounding of the
+    f32 sum to bf16 against the plain backward in f32, 2^-8 |ref| + 1e-3.
+    d sy, d sx, d m (f32 for either): rtol 1e-5 / atol 1e-6 max|ref| (the
+    warp's sum over the channels runs in another order)."""
+    df, *coords = got
+    wdf, *wcoords = want
+    assert df.dtype == dtype and df.shape == wdf.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(df, wdf, rtol=1e-5,
+                                   atol=1e-5 * float(wdf.abs().max()))
+    else:
+        assert bool(((df.float() - wdf).abs()
+                     <= 2.0 ** -8 * wdf.abs() + 1e-3).all())
+    for g, w in zip(coords, wcoords):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-6 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 512])
+@pytest.mark.parametrize("modulated", [True, False])
+def test_dcn_sample_backward_kernel_matches_plain(dtype, c, modulated):
+    """S = 1001 samples over the map, past its border and wholly outside,
+    a quarter of them on integer rows; against
+    sample_points_backward_plain computed in f32 on the same values."""
+    dev = _device()
+    rng = np.random.default_rng(10 + c)
+    b, h, w, s = 2, 19, 23, 1001
+    sy, sx, m = (t.to(dev) for t in _points(rng, b, s, h, w))
+    sy[:, :250] = torch.round(sy[:, :250])
+    m = m if modulated else None
+    feats = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32)).to(dev, dtype).contiguous(memory_format=torch.channels_last)
+    grad = torch.from_numpy(rng.standard_normal((b, s, c)).astype(
+        np.float32)).to(dev, dtype)
+    from tpuseg_torch.kernels.dcn import sample_points_backward
+
+    before = kernels.launch_counts()["dcn_sample_bwd"]
+    got = sample_points_backward(grad, feats, sy, sx, m)
+    assert kernels.launch_counts()["dcn_sample_bwd"] == before + 1
+    want = sampling.sample_points_backward_plain(grad.float(), feats.float(),
+                                                 sy, sx, m)
+    _assert_points_bwd_close(got, want, dtype)
+    # only what is asked for
+    df, dsy, dsx, dm = sample_points_backward(grad, feats, sy, sx, m,
+                                              coords_grad=False)
+    assert dsy is None and dsx is None and dm is None
+    _assert_points_bwd_close((df, None, None, None), (want[0], None, None,
+                                                      None), dtype)
+    df, *coords = sample_points_backward(grad, feats, sy, sx, m,
+                                         feats_grad=False)
+    assert df is None
+    _assert_points_bwd_close((want[0].to(dtype), *coords), want, dtype)
+
+
+def test_deform_conv2d_gradients_on_the_card_match_plain():
+    """The autograd sampler on the card: deform_conv2d gives x, the offsets
+    and the modulation the gradients of the plain path
+    (kernels.force_plain()), through one dcn_sample and one
+    dcn_sample_bwd launch. Before the sampler had a backward on the card,
+    these three got no gradient at all there."""
+    dev = _device()
+    rng = np.random.default_rng(5)
+    b, cin, cout, h, w = 2, 64, 32, 21, 17
+    x = torch.from_numpy(rng.standard_normal((b, cin, h, w)).astype(
+        np.float32)).to(dev)
+    off = torch.from_numpy((rng.standard_normal((b, 18, h, w)) * 2.0).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy(rng.uniform(0.1, 1.0, (b, 9, h, w)).astype(
+        np.float32)).to(dev)
+    weight = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3))
+                               / 24.0).astype(np.float32)).to(dev)
+    bias = torch.zeros(cout, device=dev)
+    cot = torch.from_numpy(rng.standard_normal((b, cout, h, w)).astype(
+        np.float32)).to(dev)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (x, off, mask, weight)]
+        out = deform_conv.deform_conv2d(*leaves, bias)
+        (out * cot).sum().backward()
+        return [t.grad for t in leaves]
+
+    kernels.reset_launch_counts()
+    got = grads()
+    counts = kernels.launch_counts()
+    with kernels.force_plain():
+        want = grads()
+    for g, w, name in zip(got, want, ("x", "offsets", "mask", "weight")):
+        assert g is not None and w is not None, name
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=name)
+    assert counts["dcn_sample"] == 1 and counts["dcn_sample_bwd"] == 1
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     dev = _device()
     from tpuseg_torch.kernels.nms import nms_keep_sorted
@@ -216,3 +318,18 @@ def test_kernel_wrappers_reject_bad_inputs():
         sample_points(cl, pts, pts, pts[:, :4].contiguous())
     with pytest.raises(ValueError):  # coordinates on the host
         sample_points(cl, pts.cpu(), pts, None)
+    from tpuseg_torch.kernels.dcn import sample_points_backward
+
+    g = torch.zeros(2, 5, 8, device=dev)
+    with pytest.raises(ValueError):  # NCHW, not channels_last
+        sample_points_backward(g, torch.zeros(2, 8, 4, 4, device=dev), pts,
+                               pts, pts)
+    with pytest.raises(ValueError):  # the gradient in another dtype
+        sample_points_backward(g.bfloat16(), cl, pts, pts, pts)
+    with pytest.raises(ValueError):  # the gradient of another shape
+        sample_points_backward(g[:, :4].contiguous(), cl, pts, pts, pts)
+    with pytest.raises(ValueError):  # the gradient not contiguous
+        sample_points_backward(g.transpose(1, 2).contiguous().transpose(1, 2),
+                               cl, pts, pts, pts)
+    with pytest.raises(ValueError):  # modulation of another shape
+        sample_points_backward(g, cl, pts, pts, pts[:, :4].contiguous())

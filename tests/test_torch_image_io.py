@@ -1,5 +1,6 @@
 """tpuseg_torch.data.image_io, the port's own copy of the image decode and
-encode, against tpuseg's load_image_bgr, with cv2 and with PIL."""
+encode (PIL; the port does not use cv2), against tpuseg's load_image_bgr
+(cv2 where installed), and with cv2 hidden."""
 import builtins
 
 import numpy as np

@@ -12,6 +12,10 @@ from tpuseg.models import maskrcnn as JM
 from tpuseg.models import maskrcnn_loss as JL
 from tpuseg_torch.models import maskrcnn_loss as TL
 
+# pytest-xdist runs several workers on the CPU's cores: more torch threads
+# each would only oversubscribe them
+torch.set_num_threads(2)
+
 
 def jax_draws(key, n: int) -> tuple:
     """The two uniform vectors balanced_sample draws from ``key``."""

@@ -22,6 +22,10 @@ from tpuseg_torch.models import maskrcnn_loss as TL
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.weights.from_jax import state_dict_from_jax
 
+# pytest-xdist runs several workers on the CPU's cores: more torch threads
+# each would only oversubscribe them
+torch.set_num_threads(2)
+
 CFG_KW = dict(num_classes=NC, rpn_pre_nms_top_n_train=300,
               fpn_post_nms_top_n_train=200)
 LOSS_KW = dict(num_classes=NC, rpn_batch_per_image=64, roi_batch_per_image=64)

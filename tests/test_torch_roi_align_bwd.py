@@ -14,6 +14,10 @@ from tpuseg.ops.pallas.roi_align_pl import (clamp_levels_to_window as j_clamp,
                                             multilevel_roi_align_pallas_bwd)
 from tpuseg_torch.ops import sampling as TS
 
+# pytest-xdist runs several workers on the CPU's cores: more torch threads
+# each would only oversubscribe them
+torch.set_num_threads(2)
+
 STRIDES = (4, 8, 16, 32)
 
 

@@ -15,6 +15,10 @@ from tpuseg_torch.engine import detectron_train_loop as TD
 from tpuseg_torch.engine.trainer import warmup_multistep_lr
 from tpuseg_torch.models import maskrcnn as M
 
+# pytest-xdist runs several workers on the CPU's cores: more torch threads
+# each would only oversubscribe them
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):

@@ -32,6 +32,8 @@ SLICE_MODULES = [
     "tpuseg_torch.ops.deform_conv", "tpuseg_torch.models.yolact",
     "tpuseg_torch.configs.presets", "tpuseg_torch.weights.yolact_map",
     "tpuseg_torch.engine.yolact_engine", "tpuseg_torch.tools.yolact_infer",
+    "tpuseg_torch.models.yolact_loss", "tpuseg_torch.data.augment",
+    "tpuseg_torch.engine.yolact_train_loop",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -94,12 +96,13 @@ def _imported_modules(path: Path):
 
 
 def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
+    """Nor cv2: the port runs where OpenCV is not installed."""
     files = sorted((ROOT / "tpuseg_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}: {m}" for f in files
            for m in _imported_modules(f)
-           if m.split(".")[0] in ("tpuseg", "jax", "jaxlib")]
+           if m.split(".")[0] in ("tpuseg", "jax", "jaxlib", "cv2")]
     assert not bad, bad
 
 
@@ -107,9 +110,13 @@ def test_entry_points_default_to_the_card():
     from tpuseg_torch.engine.detectron_train_loop import do_train
     from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
     from tpuseg_torch.engine.predictor import COCODemo
+    from tpuseg_torch.engine.yolact_train_loop import train
 
-    for fn in (MaskRCNNPredictor.__init__, COCODemo.__init__, do_train):
+    for fn in (MaskRCNNPredictor.__init__, COCODemo.__init__, do_train,
+               train):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MaskRCNNPredictor(M.MaskRCNNConfig(num_classes=NC))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train(None, None)

@@ -27,6 +27,10 @@ from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops.preprocess import yolact_preprocess
 from tpuseg_torch.weights.from_jax import yolact_state_dict_from_jax
 
+# pytest-xdist runs several workers on the CPU's cores: more torch threads
+# each would only oversubscribe them
+torch.set_num_threads(2)
+
 CANVAS = 256
 IMAGES_HW = (300, 260)  # a non-square input, resized to the canvas
 

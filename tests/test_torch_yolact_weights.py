@@ -20,6 +20,10 @@ from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.weights.yolact_map import load_yolact_weights
 
+# pytest-xdist runs several workers on the CPU's cores: more torch threads
+# each would only oversubscribe them
+torch.set_num_threads(2)
+
 
 @pytest.mark.parametrize("name", ["yolact_plus_resnet50", "yolact_plus_base"])
 def test_state_dict_keys_are_to_torch_state_keys(name):

@@ -5,11 +5,13 @@ carry: plain dicts here).
 Upstream's ``--config=<name>_config`` chains (Yolact.jittor
 ``data/config.py``): a preset is its parent's dict updated with its own
 keys. :func:`yolact_model_config` turns one into a
-:class:`~tpuseg_torch.models.yolact.YolactConfig`.
+:class:`~tpuseg_torch.models.yolact.YolactConfig`, :func:`yolact_loss_config`
+into a :class:`~tpuseg_torch.models.yolact_loss.YolactLossConfig`.
 """
 from __future__ import annotations
 
 from tpuseg_torch.models.yolact import YolactConfig
+from tpuseg_torch.models.yolact_loss import YolactLossConfig
 
 _SCALES = (24, 48, 96, 192, 384)
 
@@ -46,7 +48,8 @@ PRESETS = {
     "yolact_im400": {**YOLACT_BASE, "name": "yolact_im400", "max_size": 400,
                      "scales": tuple(int(s / 550 * 400) for s in _SCALES)},
     "yolact_im700": {**YOLACT_BASE, "name": "yolact_im700", "max_size": 700,
-                     "scales": tuple(int(s / 550 * 700) for s in _SCALES)},
+                     "scales": tuple(int(s / 550 * 700) for s in _SCALES),
+                     "masks_to_train": 300},
     "yolact_plus_base": {**YOLACT_BASE, **_PLUS, "name": "yolact_plus_base"},
     # resnet50_dcnv2_backbone: R50++ makes every block of stages 2-4
     # deformable
@@ -59,8 +62,7 @@ PRESETS = {
 def yolact_model_config(preset) -> YolactConfig:
     """A preset (its name, with or without upstream's ``_config`` suffix,
     or its dict) -> YolactConfig. DarkNet-53 is not ported yet."""
-    cfg = PRESETS[preset.removesuffix("_config")] if isinstance(
-        preset, str) else preset
+    cfg = _preset(preset)
     if not cfg["backbone"].startswith("resnet"):
         raise NotImplementedError(
             f"{cfg['name']}: backbone {cfg['backbone']} is not ported yet")
@@ -74,3 +76,16 @@ def yolact_model_config(preset) -> YolactConfig:
         use_square_anchors=cfg.get("use_square_anchors", True),
         dcn_backbone=cfg.get("dcn_backbone", False),
         use_maskiou=cfg.get("use_maskiou", False))
+
+
+def _preset(preset) -> dict:
+    return PRESETS[preset.removesuffix("_config")] if isinstance(
+        preset, str) else preset
+
+
+def yolact_loss_config(preset) -> YolactLossConfig:
+    """A preset -> the loss's training hyperparameters that vary per preset
+    (``masks_to_train``: 300 for im700, else 100; ``use_maskiou`` for ++)."""
+    cfg = _preset(preset)
+    return YolactLossConfig(masks_to_train=cfg.get("masks_to_train", 100),
+                            use_maskiou=cfg.get("use_maskiou", False))

@@ -43,6 +43,18 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-9,
     return inter / union.clamp(min=eps)
 
 
+def iof_matrix(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-9,
+               transpose: bool = False) -> torch.Tensor:
+    """Intersection over the area of ``a`` (crowd handling) -> [..., N, M];
+    ``transpose=True`` gives the same values as [..., M, N], computed in
+    that layout (``tpuseg/core/boxes.py::iof_matrix``)."""
+    if transpose:
+        inter = pairwise_intersection(b, a)
+        return inter / area(a)[..., None, :].clamp(min=eps)
+    inter = pairwise_intersection(a, b)
+    return inter / area(a)[..., :, None].clamp(min=eps)
+
+
 def clip_to_image(boxes: torch.Tensor, height, width) -> torch.Tensor:
     """Clamp xyxy coordinates to [0, width] x [0, height]; the bounds may be
     tensors that broadcast against ``boxes[..., 0]`` (one per image)."""
@@ -110,6 +122,12 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
     return out.reshape(shp[:-1] + (4 * k,)) if k > 1 else out[..., 0, :]
 
 
+def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1],
+                       dim=-1)
+
+
 def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = boxes.unbind(-1)
     hw, hh = w * 0.5, h * 0.5
@@ -126,6 +144,20 @@ def ssd_decode(loc: torch.Tensor, priors_cxcywh: torch.Tensor,
     cxy = pxy + loc[..., :2] * v0 * pwh
     wh = pwh * torch.exp(loc[..., 2:] * v1)
     return cxcywh_to_xyxy(torch.cat([cxy, wh], dim=-1))
+
+
+def ssd_encode(matched_xyxy: torch.Tensor, priors_cxcywh: torch.Tensor,
+               variances=(0.1, 0.2)) -> torch.Tensor:
+    """Inverse of :func:`ssd_decode` (yolact ``box_utils.encode``): xyxy
+    boxes against (cx, cy, w, h) priors -> loc targets; the extent ratio
+    clamps at 1e-9 before the log, as the JAX package's does."""
+    v0, v1 = variances
+    pxy, pwh = priors_cxcywh[..., :2], priors_cxcywh[..., 2:]
+    g_cxy = (matched_xyxy[..., :2] + matched_xyxy[..., 2:]) * 0.5
+    g_wh = matched_xyxy[..., 2:] - matched_xyxy[..., :2]
+    d_cxy = (g_cxy - pxy) / (v0 * pwh)
+    d_wh = torch.log((g_wh / pwh).clamp(min=1e-9)) / v1
+    return torch.cat([d_cxy, d_wh], dim=-1)
 
 
 def masked_topk(scores: torch.Tensor, valid: torch.Tensor, k: int):

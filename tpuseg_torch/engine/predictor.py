@@ -85,19 +85,10 @@ class COCODemo:
 
     def run_on_opencv_image(self, image_bgr: np.ndarray) -> np.ndarray:
         """BGR image -> BGR image with boxes, masks and labels drawn."""
-        import cv2
+        from tpuseg_torch.data.image_io import draw_detections
 
         preds = self.select_top_predictions(self.compute_prediction(image_bgr))
-        vis = image_bgr.copy()
-        rng = np.random.default_rng(0)
-        for i in range(len(preds["scores"])):
-            color = tuple(int(c) for c in rng.integers(60, 255, 3))
-            m = preds["masks"][i].astype(bool)
-            vis[m] = (0.5 * vis[m] + 0.5 * np.asarray(color)).astype(np.uint8)
-            x1, y1, x2, y2 = preds["boxes"][i].astype(int)
-            cv2.rectangle(vis, (x1, y1), (x2, y2), color, 2)
-            name = CATEGORIES[int(preds["classes"][i]) + 1]
-            cv2.putText(vis, f"{name}: {preds['scores'][i]:.2f}",
-                        (x1, max(y1 - 4, 10)), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
-                        color, 1)
-        return vis
+        labels = [f"{CATEGORIES[int(c) + 1]}: {s:.2f}"
+                  for c, s in zip(preds["classes"], preds["scores"])]
+        return draw_detections(image_bgr, preds["boxes"], preds["masks"],
+                               labels)

@@ -1,6 +1,7 @@
-"""The detectron solver (port of the parts of ``tpuseg/engine/trainer.py``
-that the Mask R-CNN training loop uses): WarmupMultiStepLR,
-maskrcnn-benchmark's SGD parameter groups, and the checkpoint writer.
+"""The solvers (port of ``tpuseg/engine/trainer.py``): detectron's
+WarmupMultiStepLR, maskrcnn-benchmark's SGD parameter groups and checkpoint
+writer for Mask R-CNN; yolact's warm-up and step schedule, its SGD and its
+``<cfg>_<epoch>_<iter>.pth`` checkpoints for YOLACT.
 
 ``torch.optim.SGD`` (momentum 0.9, no dampening) computes what the JAX
 ``sgd_update`` computes: buf = m * buf + (grad + wd * p); p -= lr * buf,
@@ -9,9 +10,23 @@ its first buffer being the first gradient, as from a zeroed one.
 from __future__ import annotations
 
 import os
+import re
 
 import torch
 from torch import nn
+
+
+def yolact_lr_schedule(base_lr=1e-3, warmup_until=500, warmup_init=1e-4,
+                       steps=(280000, 600000, 700000, 750000), gamma=0.1):
+    """yolact train.py's ``set_lr``: linear warm-up from ``warmup_init``
+    over ``warmup_until`` iterations, then ``gamma`` per step passed."""
+
+    def lr(it: int) -> float:
+        if it < warmup_until:
+            return warmup_init + (base_lr - warmup_init) * it / warmup_until
+        return base_lr * gamma ** sum(it >= s for s in steps)
+
+    return lr
 
 
 def warmup_multistep_lr(base_lr=0.01, steps=(120000, 160000), gamma=0.1,
@@ -75,3 +90,44 @@ def save_checkpoint(path: str, model: nn.Module, iteration: int) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save({"model": sd, "iteration": iteration}, path)
+
+
+YOLACT_MOMENTUM = 0.9
+YOLACT_WEIGHT_DECAY = 5e-4  # yolact config's momentum and decay
+
+
+def make_yolact_optimizer(model: nn.Module) -> torch.optim.SGD:
+    """yolact's SGD: momentum 0.9 and weight decay 5e-4 on every parameter
+    (BatchNorm's affine parameters and the biases too), one group whose lr
+    :func:`set_lr` sets each iteration; BatchNorm's running statistics are
+    buffers, which the optimizer never sees."""
+    return torch.optim.SGD(
+        [{"params": [p for p in model.parameters() if p.requires_grad],
+          "lr_factor": 1.0}], lr=0.0, momentum=YOLACT_MOMENTUM,
+        weight_decay=YOLACT_WEIGHT_DECAY)
+
+
+# yolact's SavePath naming, <cfg>_<epoch>_<iter>.pth
+_CKPT_RE = re.compile(r"^(?P<name>.+)_(?P<epoch>\d+)_(?P<iter>\d+)\.pth$")
+
+
+def ckpt_path(folder: str, cfg_name: str, epoch: int, iteration: int) -> str:
+    """``<folder>/<cfg>_<epoch>_<iter>.pth`` (yolact README)."""
+    return os.path.join(folder, f"{cfg_name}_{epoch}_{iteration}.pth")
+
+
+def parse_ckpt_iter(path: str) -> int:
+    """``--start_iter=-1``: the iteration from a checkpoint's file name."""
+    m = _CKPT_RE.match(os.path.basename(path))
+    if not m:
+        raise ValueError(f"checkpoint name not parseable: {path}")
+    return int(m.group("iter"))
+
+
+def save_yolact_checkpoint(path: str, model: nn.Module) -> None:
+    """yolact's checkpoint: the model's state_dict itself, dbolya's keys,
+    CPU tensors (upstream ``Yolact.save_weights``); ``load_state_dict``
+    (or tpuseg's ``load_params_ckpt``) reads it back."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               path)

@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("nms.cu", "roi_align.cu", "roi_align_bwd.cu", "dcn_sample.cu")
+SOURCES = ("nms.cu", "roi_align.cu", "roi_align_bwd.cu", "dcn_sample.cu",
+           "dcn_sample_bwd.cu")
 HEADERS = ("roi_align_common.cuh",)  # hashed with the sources
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,9 +55,16 @@ _SIGNATURES = {
     # feats, sy, sx, m (or null), B, H, W, C, S, out, stream
     "tpuseg_dcn_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tpuseg_dcn_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # feats, sy, sx, m (or null), grad, B, H, W, C, S, dfeats (f32, added
+    # into, or null), dsy, dsx (or null), dm (or null), stream
+    "tpuseg_dcn_sample_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                  _P, _P, _P, _P],
+    "tpuseg_dcn_sample_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P, _P, _P, _P, _P],
 }
 
-LAUNCHES = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "dcn_sample": 0}
+LAUNCHES = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "dcn_sample": 0,
+            "dcn_sample_bwd": 0}
 
 _state = {"lib": None, "force_plain": False}
 

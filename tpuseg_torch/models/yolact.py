@@ -1,4 +1,5 @@
-"""YOLACT and YOLACT++ inference (port of ``tpuseg/models/yolact.py``).
+"""YOLACT and YOLACT++ (port of ``tpuseg/models/yolact.py``): inference,
+and the training forward the loss of ``models/yolact_loss.py`` reads.
 
 ResNet backbone (DCNv2 in stages 2-4 for ++) -> YOLACT FPN (P3..P7) -> one
 shared PredictionModule (box deltas, class logits, tanh mask coefficients
@@ -206,20 +207,43 @@ class Yolact(nn.Module):
         self.fpn = YolactFPN(self.backbone.out_channels[1:], fc)
         self.proto_net = ProtoNet(fc, cfg.mask_dim)
         self.prediction_layers = nn.ModuleList([PredictionModule(cfg)])
-        # trained upstream, never run at inference; kept so that an upstream
-        # checkpoint loads with strict=True
+        # the semantic logits of the training loss, never run at inference
         self.semantic_seg_conv = nn.Conv2d(fc, cfg.num_classes - 1, 1)
         self.maskiou_net = (FastMaskIoUNet(cfg.num_classes)
                             if cfg.use_maskiou else None)
+        # BatchNorms in eval mode under train() (see train)
+        self.freeze_bn = False
 
     def forward(self, images: torch.Tensor) -> dict:
         """images [B, 3, S, S] normalised -> proto [B, Sp, Sp, k], loc
         [B, N, 4], conf [B, N, C], coeff [B, N, k]."""
+        return self._heads(self.fpn(self.backbone(images)[1:]))
+
+    def forward_train(self, images: torch.Tensor) -> tuple:
+        """The training forward (``tpuseg/models/yolact.py::forward_train``):
+        :meth:`forward`'s predictions and the semantic logits of P3
+        [B, Hs, Ws, C-1]."""
         pyramid = self.fpn(self.backbone(images)[1:])
+        sem = self.semantic_seg_conv(pyramid[0]).permute(0, 2, 3, 1)
+        return self._heads(pyramid), sem
+
+    def _heads(self, pyramid) -> dict:
         head = self.prediction_layers[0]
         locs, confs, coeffs = zip(*(head(p) for p in pyramid))
         return {"proto": self.proto_net(pyramid[0]), "loc": torch.cat(locs, 1),
                 "conf": torch.cat(confs, 1), "coeff": torch.cat(coeffs, 1)}
+
+    def train(self, mode: bool = True):
+        """With ``freeze_bn`` set, the BatchNorms stay in eval mode in
+        training (running statistics, none updated) while their affine
+        parameters still train, as the JAX trainer's ``freeze_bn`` (upstream
+        also stops their gradient; see ROADMAP)."""
+        super().train(mode)
+        if mode and self.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
 
 
 def build_model(cfg: YolactConfig = YolactConfig(),

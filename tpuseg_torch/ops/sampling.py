@@ -1,8 +1,10 @@
 """FPN multi-level RoIAlign (port of ``tpuseg/ops/sampling.py::
 multilevel_roi_align`` and ``ops/pallas/roi_align_pl.py::
 clamp_levels_to_window``) and DCNv2's bilinear point sampler
-(:func:`sample_points`: the kernel ``csrc/dcn_sample.cu`` for CUDA
-tensors, :func:`sample_points_plain` for CPU tensors).
+(:func:`sample_points`, differentiable: the kernels ``csrc/dcn_sample.cu``
+forward and ``csrc/dcn_sample_bwd.cu`` backward for CUDA tensors,
+:func:`sample_points_plain` and :func:`sample_points_backward_plain` for
+CPU tensors).
 
 Features are NCHW, as everywhere in the port; pooled outputs are
 [N, C, P, P], the layout upstream's box and mask heads consume.
@@ -365,6 +367,38 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
 _POINT_CHUNK = 1 << 25
 
 
+def _point_corners(y: torch.Tensor, x: torch.Tensor, h: int, w: int,
+                   base: torch.Tensor):
+    """The four bilinear corners of points (y, x) [B, n] on [B * H * W]
+    flattened maps (image b's first row ``base[b]``), in the order (y0, x0),
+    (y0, x1), (y1, x0), (y1, x1) with y0 = floor(y): per corner its rows
+    ``idx`` (clamped to the map), weight ``wgt`` (0 outside the map: no
+    coordinate clamping), ``inside`` and the weight's derivatives in y and
+    x before that masking (the floor rule: one-sided at integers)."""
+    y0, x0 = torch.floor(y), torch.floor(x)
+    ly, lx = y - y0, x - x0
+    hy, hx = 1.0 - ly, 1.0 - lx
+    out = []
+    for yc, wy, sgn_y in ((y0, hy, -1.0), (y0 + 1, ly, 1.0)):
+        for xc, wx, sgn_x in ((x0, hx, -1.0), (x0 + 1, lx, 1.0)):
+            inside = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
+            idx = (base + yc.clamp(0, h - 1).long() * w
+                   + xc.clamp(0, w - 1).long())
+            out.append((idx, torch.where(inside, wy * wx, 0.0), inside,
+                        sgn_y * wx, sgn_x * wy))
+    return out
+
+
+def _point_setup(feats: torch.Tensor):
+    """Flattened channels-last rows [B * H * W, C], each image's first row
+    [B, 1], and the samples per chunk that keep a [B, n, C] gather within
+    ``_POINT_CHUNK`` values."""
+    b, c, h, w = feats.shape
+    flat = feats.permute(0, 2, 3, 1).reshape(b * h * w, c)
+    base = (torch.arange(b, device=feats.device) * (h * w))[:, None]
+    return flat, base, max(1, _POINT_CHUNK // max(b * c, 1))
+
+
 def sample_points_plain(feats: torch.Tensor, sy: torch.Tensor,
                         sx: torch.Tensor, m: torch.Tensor | None = None
                         ) -> torch.Tensor:
@@ -382,24 +416,15 @@ def sample_points_plain(feats: torch.Tensor, sy: torch.Tensor,
     ``_POINT_CHUNK`` values."""
     b, c, h, w = feats.shape
     acc_dt = _acc_dtype(feats.dtype)
-    flat = feats.permute(0, 2, 3, 1).reshape(b * h * w, c)
-    base = (torch.arange(b, device=feats.device) * (h * w))[:, None]
-    chunk = max(1, _POINT_CHUNK // max(b * c, 1))
+    flat, base, chunk = _point_setup(feats)
     out = []
     for i in range(0, sy.shape[1], chunk):
-        y, x = sy[:, i:i + chunk], sx[:, i:i + chunk]
-        y0, x0 = torch.floor(y), torch.floor(x)
-        ly, lx = y - y0, x - x0
-        hy, hx = 1.0 - ly, 1.0 - lx
         acc = None
-        for yc, wy in ((y0, hy), (y0 + 1, ly)):
-            for xc, wx in ((x0, hx), (x0 + 1, lx)):
-                inside = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
-                wgt = torch.where(inside, wy * wx, 0.0).to(acc_dt)
-                idx = (base + yc.clamp(0, h - 1).long() * w
-                       + xc.clamp(0, w - 1).long())
-                term = flat[idx].to(acc_dt) * wgt[..., None]
-                acc = term if acc is None else acc + term
+        for idx, wgt, _, _, _ in _point_corners(sy[:, i:i + chunk],
+                                                sx[:, i:i + chunk], h, w,
+                                                base):
+            term = flat[idx].to(acc_dt) * wgt.to(acc_dt)[..., None]
+            acc = term if acc is None else acc + term
         if m is not None:
             acc = acc * m[:, i:i + chunk, None].to(acc_dt)
         out.append(acc.to(feats.dtype))
@@ -408,17 +433,144 @@ def sample_points_plain(feats: torch.Tensor, sy: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def sample_points(feats: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                  m: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`sample_points_plain`'s function: the DCN sampling kernel
-    (``csrc/dcn_sample.cu``) for CUDA tensors, on the features in
-    ``torch.channels_last`` (a copy unless they are already), the plain
-    version for CPU tensors."""
-    if not kernels.use_kernel(feats):
-        return sample_points_plain(feats, sy, sx, m)
+def sample_points_backward_plain(grad: torch.Tensor, feats: torch.Tensor,
+                                 sy: torch.Tensor, sx: torch.Tensor,
+                                 m: torch.Tensor | None = None,
+                                 feats_grad: bool = True,
+                                 coords_grad: bool = True) -> tuple:
+    """Plain transpose of :func:`sample_points_plain` (the plain version of
+    the backward kernel, ``csrc/dcn_sample_bwd.cu``): grad [B, S, C] ->
+    (d feats [B, C, H, W] in the feature dtype, d sy, d sx and d m [B, S]
+    in the coordinates' dtypes), each None where not asked for (d m also
+    when ``m`` is None).
+
+    The derivatives of the JAX gather path (floor rule, one-sided at
+    integer coordinates), in the kernel's order: per sample, (g * m) * w
+    of each corner inside the map is added into an f32 buffer by an
+    explicit ``index_add_`` and cast to the feature dtype once; d sy = m *
+    sum_c g * (-hx f00 - lx f01 + hx f10 + lx f11), d sx likewise with
+    (-hy, hy, -ly, ly), d m = sum_c g * (the bilinear value), a corner
+    outside the map read as 0. Chunked over S as the forward."""
+    b, c, h, w = feats.shape
+    acc_dt = _acc_dtype(feats.dtype)
+    flat, base, chunk = _point_setup(feats)
+    dflat = (torch.zeros((b * h * w, c), dtype=acc_dt, device=feats.device)
+             if feats_grad else None)
+    dsy, dsx, dm = [], [], []
+    for i in range(0, sy.shape[1], chunk):
+        g = grad[:, i:i + chunk].to(acc_dt)
+        mc = None if m is None else m[:, i:i + chunk, None].to(acc_dt)
+        gm = g if mc is None else g * mc
+        ty = tx = val = None
+        for idx, wgt, inside, dwy, dwx in _point_corners(
+                sy[:, i:i + chunk], sx[:, i:i + chunk], h, w, base):
+            wgt = wgt.to(acc_dt)[..., None]
+            if feats_grad:
+                dflat.index_add_(0, idx.reshape(-1), (gm * wgt).reshape(-1, c))
+            if coords_grad:
+                f = torch.where(inside[..., None], flat[idx].to(acc_dt), 0.0)
+                terms = (f * dwy.to(acc_dt)[..., None],
+                         f * dwx.to(acc_dt)[..., None], f * wgt)
+                ty, tx, val = terms if ty is None else (
+                    ty + terms[0], tx + terms[1], val + terms[2])
+        if coords_grad:
+            ay, ax = (g * ty).sum(-1), (g * tx).sum(-1)
+            if mc is not None:
+                ay, ax = ay * mc[..., 0], ax * mc[..., 0]
+                dm.append((g * val).sum(-1))
+            dsy.append(ay)
+            dsx.append(ax)
+    df = None
+    if feats_grad:
+        df = dflat.reshape(b, h, w, c).permute(0, 3, 1, 2).to(feats.dtype)
+    if not coords_grad:
+        return df, None, None, None
+
+    def cat(parts, like):
+        return (torch.cat(parts, dim=1) if parts
+                else like.new_zeros(like.shape)).to(like.dtype)
+
+    return (df, cat(dsy, sy), cat(dsx, sx),
+            None if m is None else cat(dm, m))
+
+
+def _kernel_points(feats, sy, sx, m):
     from tpuseg_torch.kernels import dcn as K
 
-    return K.sample_points(
-        feats.contiguous(memory_format=torch.channels_last),
-        sy.float().contiguous(), sx.float().contiguous(),
-        None if m is None else m.float().contiguous())
+    return K.sample_points(feats, sy.float().contiguous(),
+                           sx.float().contiguous(),
+                           None if m is None else m.float().contiguous())
+
+
+def _kernel_points_backward(grad, feats, sy, sx, m, feats_grad, coords_grad):
+    from tpuseg_torch.kernels import dcn as K
+
+    df, dsy, dsx, dm = K.sample_points_backward(
+        grad.to(feats.dtype).contiguous(), feats, sy.float().contiguous(),
+        sx.float().contiguous(),
+        None if m is None else m.float().contiguous(), feats_grad,
+        coords_grad)
+    if coords_grad:
+        dsy, dsx = dsy.to(sy.dtype), dsx.to(sx.dtype)
+        dm = None if m is None else dm.to(m.dtype)
+    return df, dsy, dsx, dm
+
+
+def _points_backward_on(kernel: bool, grad, feats, sy, sx, m, feats_grad,
+                        coords_grad) -> tuple:
+    """The one place that picks the sampler's backward: the kernel if
+    ``kernel``, else :func:`sample_points_backward_plain`."""
+    back = (_kernel_points_backward if kernel
+            else sample_points_backward_plain)
+    return back(grad, feats, sy, sx, m, feats_grad, coords_grad)
+
+
+def sample_points_backward(grad: torch.Tensor, feats: torch.Tensor,
+                           sy: torch.Tensor, sx: torch.Tensor,
+                           m: torch.Tensor | None = None,
+                           feats_grad: bool = True,
+                           coords_grad: bool = True) -> tuple:
+    """:func:`sample_points_backward_plain`'s function: the backward kernel
+    (``csrc/dcn_sample_bwd.cu``, on the features in ``torch.channels_last``)
+    for CUDA tensors, the plain version for CPU tensors."""
+    kernel = kernels.use_kernel(feats)
+    if kernel:
+        feats = feats.contiguous(memory_format=torch.channels_last)
+    return _points_backward_on(kernel, grad, feats, sy, sx, m, feats_grad,
+                               coords_grad)
+
+
+class _SamplePoints(torch.autograd.Function):
+    """The differentiable point sampler: the sampling kernel forward, the
+    backward kernel backward (their plain versions on the CPU), chosen once,
+    at the forward. It saves the channels-last features, the coordinates
+    and the modulation; the backward computes only the gradients asked for.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, sy, sx, m):
+        ctx.kernel = kernels.use_kernel(feats)
+        feats = feats.contiguous(memory_format=torch.channels_last)
+        ctx.save_for_backward(feats, sy, sx, m)
+        if ctx.kernel:
+            return _kernel_points(feats, sy, sx, m)
+        return sample_points_plain(feats, sy, sx, m)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, sy, sx, m = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = _points_backward_on(ctx.kernel, grad, feats, sy, sx, m,
+                                    need[0], any(need[1:]))
+        return tuple(g if n else None for g, n in zip(grads, need))
+
+
+def sample_points(feats: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                  m: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`sample_points_plain`'s function, differentiable in the
+    features, the coordinates and the modulation: the DCN sampling kernel
+    (``csrc/dcn_sample.cu``) forward and its backward kernel
+    (``csrc/dcn_sample_bwd.cu``) for CUDA tensors, on the features in
+    ``torch.channels_last`` (a copy unless they are already), the plain
+    versions for CPU tensors."""
+    return _SamplePoints.apply(feats, sy, sx, m)

@@ -19,9 +19,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    import numpy as np
-
-    from tpuseg_torch.data.image_io import load_image_bgr, save_image_bgr
+    from tpuseg_torch.data.image_io import (draw_detections, load_image_bgr,
+                                           save_image_bgr)
     from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
 
     demo = MaskRCNNPredictor(weights=args.weights, device=args.device,
@@ -36,16 +35,7 @@ def main(argv=None):
               f"{top['scores'][i]:.3f} box [{x1:.1f},{y1:.1f},{x2:.1f},{y2:.1f}]"
               f" mask_px {int(top['masks'][i].sum())}")
     if args.out:
-        import cv2
-
-        vis = img.copy()
-        rng = np.random.default_rng(0)
-        for i in range(len(top["scores"])):
-            color = tuple(int(c) for c in rng.integers(60, 255, 3))
-            m = top["masks"][i].astype(bool)
-            vis[m] = (0.55 * vis[m] + 0.45 * np.asarray(color)).astype(np.uint8)
-            x1, y1, x2, y2 = top["boxes"][i].astype(int)
-            cv2.rectangle(vis, (x1, y1), (x2, y2), color, 2)
+        vis = draw_detections(img, top["boxes"], top["masks"], alpha=0.45)
         save_image_bgr(args.out, vis)
         print(f"wrote {args.out}")
 
