@@ -6,8 +6,10 @@
 Needs one CUDA card and nvcc (builds the kernels from tpuseg_torch/csrc).
 Phases, one line each; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit);
-  2. build of the CUDA kernels;
-  3. the NMS kernel against its plain version at the main paths' shapes
+  2. build of the CUDA kernels (each kernel's registers and spills from
+     ptxas);
+  3. the NMS kernel against its plain version at the main paths' shapes,
+     at N = 2049 (one row block past 2048) and at the C4 budget N = 12 000
      (keep masks identical);
   4. the RoIAlign kernel against its plain version at the main paths'
      shapes (f32: atol = rtol = 1e-5; bf16: |err| <= 2^-8 |ref| + 1e-3, ref
@@ -18,9 +20,11 @@ Phases, one line each; any failure raises and exits non-zero:
      1e-3 against the plain version in f32), and the differentiable
      pooler's feature gradient against the kernel's;
   6. the DCN sampling kernel against its plain version at the six DCN
-     geometries of YOLACT++-550 R-50, B = 8 (f32 bit for bit; bf16 as
-     RoIAlign's), grid_sample against the plain version (1e-4 max|ref|),
-     and a zero-offset DCN against F.conv2d (TF32 off, 1e-4);
+     geometries of YOLACT++-550 R-50, B = 8, and at a ragged C (130, the
+     kernel's narrow path): f32 and bf16 bit for bit, bf16 also as
+     RoIAlign's against the plain version in f32; grid_sample against the
+     plain version (1e-4 max|ref|), and a zero-offset DCN against F.conv2d
+     (TF32 off, 1e-4);
   7. the DCN sampling backward kernel against its plain version at the
      same geometries, with the offsets of phase 6 and with zero offsets
      (every sample on an integer), f32 and bf16 (d feats as the RoIAlign
@@ -51,7 +55,8 @@ Phases, one line each; any failure raises and exits non-zero:
      plain versions (as phase 9);
   12. timings: each kernel against its plain version and its bound (DCN
      sampling also against grid_sample, its backward against
-     grid_sample's), Mask R-CNN forward img/s at B = 1 and 2 and its
+     grid_sample's; NMS also the kernel launch alone, without the sort
+     around it), Mask R-CNN forward img/s at B = 1 and 2 and its
      training step at B = 2 on the 800x1344 canvas, YOLACT++ forward and
      run_batch img/s at B = 1 and 8 in f32 and bf16, and its training step
      at B = 8, through both paths, with the host's batch time apart.
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -135,6 +141,8 @@ ROI_OPS_PER_SAMPLE = 12  # per channel: 4 corner weights, 4 mul, 4 add
 DCN_SHAPES = ((138, 138, 128, 2), (69, 69, 128, 1), (69, 69, 256, 2),
               (35, 35, 256, 1), (35, 35, 512, 2), (18, 18, 512, 1))
 DCN_PER_FORWARD = (1, 3, 1, 5, 1, 2)
+# a channel count that no 16-byte vector divides (the kernel's narrow path)
+DCN_RAGGED = (69, 69, 130, 1)
 DCN_BATCH = 8
 DCN_OPS_PER_VALUE = 12  # per sample and channel: 4 corner weights, 4 mul,
 #                         3 add, the modulation
@@ -199,10 +207,12 @@ def random_boxes(g: torch.Generator, shape, dev, extent=CANVAS, clusters=40):
 def nms_cases(dev):
     """(label, boxes, scores, valid, classes or None, thr) at the main paths'
     shapes: B = 2; N = 819 (P6), 1000 (RPN levels at inference), 2000 (RPN
-    levels in training), 2048 (final, class-aware)."""
+    levels in training), 2048 (final, class-aware); also N = 2049 (one row
+    block past 2048) and 12 000 (Mask R-CNN C4's training RPN budget)."""
     g = torch.Generator().manual_seed(SEED + 3)
     cases = []
-    for n, thr in ((819, 0.7), (1000, 0.7), (2000, 0.7), (2048, 0.5)):
+    for n, thr in ((819, 0.7), (1000, 0.7), (2000, 0.7), (2048, 0.5),
+                   (2049, 0.7), (12000, 0.7)):
         boxes = random_boxes(g, (2, n), dev)
         scores = torch.rand(2, n, generator=g).to(dev)
         valid = (torch.rand(2, n, generator=g) < 0.9).to(dev)
@@ -440,16 +450,17 @@ def grid_sample_points(feats, sy, sx, m):
 
 
 def phase_dcn(dev) -> dict:
-    """At each DCN geometry of YOLACT++-550 R-50, B = 8: f32 equal to the
-    plain version bit for bit; bf16 within 2^-8 |ref| + 1e-3 of the plain
-    version in f32; grid_sample within 1e-4 max|ref| of the plain version;
-    a DCN with zero offsets and unit modulation equal to F.conv2d (TF32
-    off) within rtol 1e-4 / atol 1e-4 max|ref|."""
+    """At each DCN geometry of YOLACT++-550 R-50 and at DCN_RAGGED, B = 8:
+    f32 and bf16 equal to the plain version bit for bit; bf16 also within
+    2^-8 |ref| + 1e-3 of the plain version in f32; grid_sample within 1e-4
+    max|ref| of the plain version; a DCN with zero offsets and unit
+    modulation equal to F.conv2d (TF32 off) within rtol 1e-4 / atol 1e-4
+    max|ref|."""
     worst, lines = 0.0, []
     prev_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for h, w, c, st in DCN_SHAPES:
+        for h, w, c, st in DCN_SHAPES + (DCN_RAGGED,):
             feats, sy, sx, m = dcn_case(dev, h, w, c, st)
             got = sampling.sample_points(feats, sy, sx, m)
             want = sampling.sample_points_plain(feats, sy, sx, m)
@@ -459,7 +470,12 @@ def phase_dcn(dev) -> dict:
                                      f"from the plain version by "
                                      f"{float((got - want).abs().max())}")
             fb = feats.bfloat16()
-            got_bf = sampling.sample_points(fb, sy, sx, m).float()
+            got_bf = sampling.sample_points(fb, sy, sx, m)
+            if not torch.equal(got_bf, sampling.sample_points_plain(fb, sy, sx,
+                                                                    m)):
+                raise AssertionError(f"dcn_sample {h}x{w}x{c}: bf16 differs "
+                                     "from the plain version")
+            got_bf = got_bf.float()
             ref = sampling.sample_points_plain(fb.float(), sy, sx, m)
             err_bf = (got_bf - ref).abs()
             excess = float((err_bf - (2.0 ** -8 * ref.abs() + 1e-3)).max())
@@ -484,7 +500,8 @@ def phase_dcn(dev) -> dict:
             torch.testing.assert_close(dcn, conv, rtol=1e-4,
                                        atol=1e-4 * float(conv.abs().max()))
             outside = float((want[:, :, 0] == 0).float().mean())
-            lines.append(f"{h}x{w}x{c} s{st}: f32 equal, bf16 max err "
+            lines.append(f"{h}x{w}x{c} s{st}: f32 and bf16 equal, bf16 vs "
+                         f"the f32 plain max err "
                          f"{float(err_bf.max()):.3g}, grid_sample "
                          f"{lib_err:.3g}, zero-offset DCN vs conv "
                          f"{conv_err:.3g}, {100 * outside:.1f} % of samples "
@@ -1388,15 +1405,41 @@ def roi_bwd_bound(n: int, p: int, itemsize: int) -> tuple:
     return roi_bound(n, p, pyramid_bytes(itemsize), itemsize)
 
 
+def kernel_args(module, name: str, fn) -> tuple:
+    """The arguments with which ``fn()`` calls ``module.name`` (a kernel
+    wrapper that the dispatch imports at call time): to time the launch
+    alone, without the torch work around it."""
+    seen, real = [], getattr(module, name)
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    setattr(module, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return seen[0]
+
+
 def phase_timing(dev, pred, train: dict, card: str) -> dict:
+    from tpuseg_torch.kernels import nms as nms_kernel
+
     times = {}
     with torch.inference_mode():
         for label, boxes, scores, valid, classes, thr in nms_cases(dev):
             if label.startswith("dup"):
                 continue
-            k, p = time_pair(lambda: run_nms(boxes, scores, valid, classes, thr))
-            times[f"nms B=2 {label}"] = (k, p) + nms_bound(boxes, scores,
-                                                           valid, classes, thr)
+            iters = 20 if boxes.shape[1] <= 2048 else 5
+            def nms():
+                return run_nms(boxes, scores, valid, classes, thr)
+
+            k, p = time_pair(nms, iters)
+            args = kernel_args(nms_kernel, "nms_keep", nms)
+            alone = cuda_time_ms(lambda: nms_kernel.nms_keep(*args), iters)
+            times[f"nms B=2 {label}"] = (k, p) + nms_bound(
+                boxes, scores, valid, classes, thr) + (None, alone)
         for n, pp in ((2000, 7), (200, 14)):
             for dt in (torch.float32, torch.bfloat16):
                 case = roi_case(dev, n, dt)
@@ -1425,8 +1468,10 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
                 f"({t[0]:.3f} ms), plain {1e3 * b / t[1]:.2f} img/s "
                 f"({t[1]:.3f} ms) [{card}]")
         else:
-            log(f"[12 timing] {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} "
-                f"ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
+            alone = (f" (the kernel launch alone {t[5]:.4f} ms)"
+                     if name.startswith("nms") else "")
+            log(f"[12 timing] {name}: kernel {t[0]:.4f} ms{alone}, plain "
+                f"{t[1]:.4f} ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
 
     # the training step (forward, backward, SGD) at B = 2 with TF32
     # convolutions as do_train runs them: kernels, plain once, kernels
@@ -1482,7 +1527,7 @@ def time_yolact(dev, yolact: dict, card: str) -> dict:
     kernels against plain."""
     times = {}
     with torch.inference_mode():
-        for h, w, c, st in DCN_SHAPES:
+        for h, w, c, st in DCN_SHAPES + (DCN_RAGGED,):
             for dt in (torch.float32, torch.bfloat16):
                 feats, sy, sx, m = dcn_case(dev, h, w, c, st, dt)
                 k, p = time_pair(
@@ -1597,14 +1642,43 @@ def time_yolact_train(dev, yt: dict, card: str) -> dict:
 
 
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(launches.values()),
-            "launches_by_path": launches, "max_abs_err": err, "ms": t[0],
-            "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
-            # no PyTorch call computes NMS or multi-level RoIAlign (or its
-            # gradient) without torchvision, which is not a dependency;
-            # grid_sample computes DCN sampling, its backward the sampler's
-            "library_ms": t[4] if len(t) > 4 else None}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": sum(launches.values()),
+             "launches_by_path": launches, "max_abs_err": err, "ms": t[0],
+             "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+             # no PyTorch call computes NMS or multi-level RoIAlign (or its
+             # gradient) without torchvision, which is not a dependency;
+             # grid_sample computes DCN sampling, its backward the sampler's
+             "library_ms": t[4] if len(t) > 4 else None}
+    if len(t) > 5:  # NMS: the launch alone, without the sort around it
+        entry["kernel_alone_ms"] = t[5]
+    return entry
+
+
+def ptxas_summary(log_text: str) -> list:
+    """'kernel<template args>: N registers, spills S/L bytes' for each
+    kernel that ``nvcc -Xptxas -v`` compiled (the names demangled by hand:
+    f is f32, 13__nv_bfloat16 bf16, Li4E the integer 4)."""
+    out, name = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            base = re.search(r"([a-z_]+_kernel)", mangled).group(1)
+            targs = re.search(base + r"I(.*?)EEv", mangled)
+            kinds = re.findall(r"13__nv_bfloat16|Li\d+E|f", targs.group(1)
+                               ) if targs else []
+            parts = ["bf16" if k[0] == "1" else "f32" if k == "f" else k[2:-1]
+                     for k in kinds]
+            name = base + (f"<{','.join(parts)}>" if parts else "")
+            spills = "spills not reported"
+        elif "spill stores" in ln and name:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            spills = f"spills {st}/{ld} bytes"
+        elif "registers" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers, {spills}")
+            name = None
+    return out
 
 
 def main() -> int:
@@ -1621,10 +1695,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = kernels.build()
     kernels.library()
-    regs = [ln.strip() for ln in (lib_path.parent / "build.log").read_text()
-            .splitlines() if "registers" in ln]
+    ptxas = ptxas_summary((lib_path.parent / "build.log").read_text())
     log(f"[2 build] {lib_path.relative_to(Path(__file__).resolve().parent)} "
-        f"in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs)}")
+        f"in {time.perf_counter() - t0:.1f} s; ptxas: {'; '.join(ptxas)}")
 
     nms_res = phase_nms(dev)
     roi_res = phase_roi_align(dev)

@@ -29,14 +29,22 @@ def _boxes(rng, shape, extent=(200.0, 320.0)):
     return np.concatenate([xy, xy + wh], -1).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 819, 1000])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 819, 1000, 2047, 2048, 2049,
+                               6000, 12000])
 @pytest.mark.parametrize("to_remove", [0.0, 1.0])
 def test_nms_kernel_matches_plain(n, to_remove):
+    """B = 3, the last image all invalid; scores rounded to 0.01 (ties), a
+    run of boxes repeated with one score in image 0 (heavy duplicates);
+    N up to the C4 budget 12 000 (188 row blocks, several staged pieces
+    per row block)."""
     dev = _device()
     rng = np.random.default_rng(n)
     boxes = torch.from_numpy(_boxes(rng, (3, n))).to(dev)
     scores = torch.from_numpy(rng.uniform(size=(3, n)).round(2)
                               .astype(np.float32)).to(dev)
+    dup = slice(n // 3, n // 3 + max(1, n // 10))
+    boxes[0, dup] = boxes[0, n // 3].clone()
+    scores[0, dup] = scores[0, n // 3].clone()
     valid = torch.from_numpy(rng.uniform(size=(3, n)) < 0.8).to(dev)
     valid[2] = False
     before = kernels.launch_counts()["nms"]
@@ -47,6 +55,33 @@ def test_nms_kernel_matches_plain(n, to_remove):
                                       to_remove=to_remove)
     assert torch.equal(got, want)
     assert not got[2].any()
+
+
+def test_nms_kernel_writes_keep_in_the_boxes_order(monkeypatch):
+    """The kernel reads the boxes through the sort's order and writes the
+    keep mask in the boxes' own order: nms_keep under a random permutation
+    equals the plain NMS, and nms_mask_batch's kernel path runs no scatter
+    (nor the zeros it used to scatter into) in torch."""
+    dev = _device()
+    rng = np.random.default_rng(7)
+    n = 1500
+    boxes = torch.from_numpy(_boxes(rng, (2, n))).to(dev)
+    scores = torch.from_numpy(rng.uniform(size=(2, n)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=(2, n)) < 0.9).to(dev)
+    with kernels.force_plain():
+        want = nms_ops.nms_mask_batch(boxes, scores, 0.6, valid)
+    from tpuseg_torch.kernels.nms import nms_keep
+
+    svalid, order = nms_ops._sort_desc(scores, valid)
+    assert not torch.equal(order, torch.arange(n, device=dev).expand(2, n))
+    assert torch.equal(nms_keep(boxes, order, svalid, 0.6), want)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a scatter in torch on the kernel path")
+
+    monkeypatch.setattr(torch.Tensor, "scatter_", forbidden)
+    monkeypatch.setattr(torch, "zeros_like", forbidden)
+    assert torch.equal(nms_ops.nms_mask_batch(boxes, scores, 0.6, valid), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -145,17 +180,22 @@ def _points(rng, b, s, h, w):
     return [torch.from_numpy(a.astype(np.float32)) for a in (sy, sx, m)]
 
 
-@pytest.mark.parametrize("c", [64, 128, 512])
+@pytest.mark.parametrize("c", [3, 64, 128, 130, 512])
 @pytest.mark.parametrize("modulated", [True, False])
 def test_dcn_sample_kernel_matches_plain(c, modulated):
-    """S = 1001 (not a multiple of the 256-thread block); f32 equal bit
-    for bit (IEEE-rounded steps in one order on both sides); bf16 within
-    the output's one rounding, 2^-8 |ref| + 1e-3, of the plain version
-    computed in f32 on the same bf16 values."""
+    """S = 1001 (not a multiple of the 256-thread block), samples past the
+    border, wholly outside and (a quarter of the rows, a tenth of the
+    points in both) on integer coordinates; C = 3 and 130 take the ragged
+    path (no 16-byte vectors). f32 and bf16 equal to the plain version bit
+    for bit (IEEE-rounded steps in one order on both sides); bf16 also
+    within the output's one rounding, 2^-8 |ref| + 1e-3, of the plain
+    version computed in f32 on the same bf16 values."""
     dev = _device()
     rng = np.random.default_rng(c)
     b, h, w, s = 2, 19, 23, 1001
     sy, sx, m = (t.to(dev) for t in _points(rng, b, s, h, w))
+    sy[:, :250] = torch.round(sy[:, :250])
+    sx[:, :100] = torch.round(sx[:, :100])
     m = m if modulated else None
     feats = torch.from_numpy(rng.standard_normal((b, c, h, w))
                              .astype(np.float32)).to(dev)
@@ -173,6 +213,24 @@ def test_dcn_sample_kernel_matches_plain(c, modulated):
     ref = sampling.sample_points_plain(fb.float(), sy, sx, m)
     assert bool(((got_bf.float() - ref).abs()
                  <= 2.0 ** -8 * ref.abs() + 1e-3).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_sample_kernel_on_unaligned_storage(dtype):
+    """Features whose storage starts one element past a 16-byte boundary
+    (channels-last, C = 128): the kernel takes its narrow path and still
+    equals the plain version bit for bit."""
+    dev = _device()
+    rng = np.random.default_rng(11)
+    b, c, h, w, s = 2, 128, 19, 23, 777
+    sy, sx, m = (t.to(dev) for t in _points(rng, b, s, h, w))
+    flat = torch.from_numpy(rng.standard_normal(b * h * w * c + 1).astype(
+        np.float32)).to(dev, dtype)
+    feats = flat[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+    assert feats.is_contiguous(memory_format=torch.channels_last)
+    assert feats.data_ptr() % 16
+    got = sampling.sample_points(feats, sy, sx, m)
+    assert torch.equal(got, sampling.sample_points_plain(feats, sy, sx, m))
 
 
 def _assert_points_bwd_close(got, want, dtype):
@@ -278,15 +336,20 @@ def test_deform_conv2d_gradients_on_the_card_match_plain():
 
 def test_kernel_wrappers_reject_bad_inputs():
     dev = _device()
-    from tpuseg_torch.kernels.nms import nms_keep_sorted
+    from tpuseg_torch.kernels.nms import nms_keep
     from tpuseg_torch.kernels.roi_align import multilevel_roi_align
 
     boxes = torch.zeros(1, 8, 4, device=dev)
+    order = torch.arange(8, device=dev)[None]
+    ok = torch.ones(1, 8, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
-        nms_keep_sorted(boxes.double(), torch.ones(1, 8, dtype=torch.bool,
-                                                   device=dev), 0.5)
-    with pytest.raises(ValueError):
-        nms_keep_sorted(boxes, torch.ones(1, 8, dtype=torch.bool), 0.5)
+        nms_keep(boxes.double(), order, ok, 0.5)
+    with pytest.raises(ValueError):  # the validity on the host
+        nms_keep(boxes, order, ok.cpu(), 0.5)
+    with pytest.raises(ValueError):  # an int32 order
+        nms_keep(boxes, order.int(), ok, 0.5)
+    with pytest.raises(ValueError):  # an order of another shape
+        nms_keep(boxes, order[:, :7].contiguous(), ok, 0.5)
     feats = [torch.zeros(1, 8, 4, 4, device=dev)]  # NCHW, not channels_last
     with pytest.raises(ValueError):
         multilevel_roi_align(feats, torch.zeros(2, 4, device=dev),

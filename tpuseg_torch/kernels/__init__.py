@@ -38,8 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
-    # boxes, valid, mask scratch, keep, B, N, thr, to_remove, stream
-    "tpuseg_nms_mask": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # boxes, order, sorted valid, mask scratch, keep, B, N, thr,
+    # to_remove, stream
+    "tpuseg_nms_mask": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # level ptrs[L], heights[L], widths[L], scales[L], L, B, C, boxes,
     # batch_idx, levels, N, P, S, out, stream
     "tpuseg_roi_align_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,

@@ -27,9 +27,13 @@ def _check_points(feats, sy, sx, m, name: str) -> int:
         if t.shape[0] != feats.shape[0] or t.shape != sy.shape:
             raise ValueError(f"{name} kernel: {arg} {tuple(t.shape)}, sy "
                              f"{tuple(sy.shape)}, feats {tuple(feats.shape)}")
+    b, c, h, w = feats.shape
     s = sy.shape[1]
-    if s >= 2 ** 31:  # passed as a C int
-        raise ValueError(f"{name} kernel: {s} samples per image")
+    if b > 65535 or h * w * c >= 2 ** 31 or s * c >= 2 ** 31:
+        # the grid's images and the kernels' 32-bit offsets in one image
+        raise ValueError(f"{name} kernel: {b} images of {h}x{w}x{c}, {s} "
+                         "samples: at most 65535 images, H*W*C and S*C "
+                         "below 2^31")
     return s
 
 

@@ -18,10 +18,11 @@ TILE = 128  # boxes per tile of the plain fixed-point NMS
 
 def _sort_desc(scores: torch.Tensor, valid: torch.Tensor):
     """Invalid entries score NEG_INF; a stable sort keeps ties in index
-    order, as ``jnp.argsort(-masked)`` does."""
+    order, as ``jnp.argsort(-masked)`` does. -> (the sorted validity,
+    the order)."""
     masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    order = torch.sort(masked, dim=-1, descending=True, stable=True)[1]
-    return masked, order
+    smasked, order = torch.sort(masked, dim=-1, descending=True, stable=True)
+    return smasked > NEG_INF, order
 
 
 def _self_suppress_tile(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -50,9 +51,8 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     b, n = scores.shape
     if valid is None:
         valid = torch.ones_like(scores, dtype=torch.bool)
-    masked, order = _sort_desc(scores, valid)
+    svalid, order = _sort_desc(scores, valid)
     sboxes = box_ops.gather_along_n(boxes, order)
-    svalid = torch.gather(masked, 1, order) > NEG_INF
     alive = svalid.clone()
     for start in range(0, n, TILE):
         stop = min(start + TILE, n)
@@ -75,22 +75,21 @@ def nms_mask_batch(boxes: torch.Tensor, scores: torch.Tensor,
                    to_remove: float = 0.0) -> torch.Tensor:
     """Per-image NMS over a batch: [B, N, 4] / [B, N] -> keep [B, N].
 
-    For CUDA tensors: one launch of the NMS kernel for the whole batch,
-    with the sort, the validity mask and the scatter back to the original
-    order in torch around it. For CPU tensors: :func:`nms_mask`.
+    For CUDA tensors: the score sort in torch, then one launch of the NMS
+    kernel for the whole batch, which reads the boxes through the order and
+    writes the keep mask in the boxes' own order. For CPU tensors:
+    :func:`nms_mask`.
     """
     if valid is None:
         valid = torch.ones_like(scores, dtype=torch.bool)
     if not kernels.use_kernel(boxes):
         return nms_mask(boxes, scores, iou_threshold, valid,
                         to_remove=to_remove)
-    from tpuseg_torch.kernels.nms import nms_keep_sorted
+    from tpuseg_torch.kernels.nms import nms_keep
 
-    masked, order = _sort_desc(scores, valid)
-    sboxes = box_ops.gather_along_n(boxes.float(), order).contiguous()
-    svalid = (torch.gather(masked, 1, order) > NEG_INF).contiguous()
-    keep_sorted = nms_keep_sorted(sboxes, svalid, iou_threshold, to_remove)
-    return torch.zeros_like(keep_sorted).scatter_(1, order, keep_sorted)
+    svalid, order = _sort_desc(scores, valid)
+    return nms_keep(boxes.float().contiguous(), order, svalid, iou_threshold,
+                    to_remove)
 
 
 def batched_nms_mask_batch(boxes: torch.Tensor, scores: torch.Tensor,
