@@ -12,8 +12,9 @@ Phases, one line each; any failure raises and exits non-zero:
      at N = 2049 (one row block past 2048) and at the C4 budget N = 12 000
      (keep masks identical);
   4. the RoIAlign kernel against its plain version at the main paths'
-     shapes (f32: atol = rtol = 1e-5; bf16: |err| <= 2^-8 |ref| + 1e-3, ref
-     the plain version computed in f32 on the same bf16 inputs);
+     shapes: equal bit for bit in f32 and bf16; bf16 also |err| <= 2^-8
+     |ref| + 1e-3, ref the plain version computed in f32 on the same bf16
+     inputs;
   5. the RoIAlign backward kernel against its plain version at the training
      step's shapes (f32: atol 1e-5 max|ref|, rtol 1e-5, since atomics add in
      an order that changes from run to run; bf16: |err| <= 2^-8 |ref| +
@@ -26,9 +27,10 @@ Phases, one line each; any failure raises and exits non-zero:
      plain version (1e-4 max|ref|), and a zero-offset DCN against F.conv2d
      (TF32 off, 1e-4);
   7. the DCN sampling backward kernel against its plain version at the
-     same geometries, with the offsets of phase 6 and with zero offsets
-     (every sample on an integer), f32 and bf16 (d feats as the RoIAlign
-     backward's; d sy, d sx and d m rtol 1e-5 / atol 1e-6 max|ref|);
+     same geometries and at the ragged C (its narrow vector reductions),
+     with the offsets of phase 6 and with zero offsets (every sample on an
+     integer), f32 and bf16 (d feats as the RoIAlign backward's; d sy, d sx
+     and d m rtol 1e-5 / atol 1e-6 max|ref|);
   8. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
      (full width, 81 classes, synthetic upstream-keyed weights from a numpy
      seed): launch counts per forward, sane outputs, and the heads run on
@@ -55,8 +57,11 @@ Phases, one line each; any failure raises and exits non-zero:
      plain versions (as phase 9);
   12. timings: each kernel against its plain version and its bound (DCN
      sampling also against grid_sample, its backward against
-     grid_sample's; NMS also the kernel launch alone, without the sort
-     around it), Mask R-CNN forward img/s at B = 1 and 2 and its
+     grid_sample's; NMS, RoIAlign and the DCN backward also the kernel
+     launch alone, without the torch work of the dispatch around it;
+     RoIAlign also at the training step's shapes; the DCN backward at
+     69x69x128 also with d feats only and with the coordinates only),
+     Mask R-CNN forward img/s at B = 1 and 2 and its
      training step at B = 2 on the 800x1344 canvas, YOLACT++ forward and
      run_batch img/s at B = 1 and 8 in f32 and bf16, and its training step
      at B = 8, through both paths, with the host's batch time apart.
@@ -289,6 +294,9 @@ def phase_roi_align(dev) -> dict:
         with kernels.force_plain():
             want = run_roi(case, p)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        if not torch.equal(got, want):
+            raise AssertionError(f"RoIAlign f32 N={n} P={p}: differs from "
+                                 "the plain version")
         err = float((got - want).abs().max())
         worst = max(worst, err)
         # bf16: the reference is the plain version computed in f32 on the
@@ -303,6 +311,9 @@ def phase_roi_align(dev) -> dict:
         err_bf = (got_bf - want_bf).abs()
         with kernels.force_plain():
             plain_bf = run_roi(case_bf, p).float()
+        if not torch.equal(got_bf, plain_bf):
+            raise AssertionError(f"RoIAlign bf16 N={n} P={p}: differs from "
+                                 "the plain version")
         err_bf_plain = float((got_bf - plain_bf).abs().max())
         excess = float((err_bf - (2.0 ** -8 * want_bf.abs() + 1e-3)).max())
         if excess > 0:
@@ -312,7 +323,7 @@ def phase_roi_align(dev) -> dict:
         lines.append(f"N={n} P={p} levels {levels}: f32 max err {err:.3g}; "
                      f"bf16 max err {float(err_bf.max()):.3g} vs the f32 "
                      f"plain, {err_bf_plain:.3g} vs the bf16 plain")
-    log("[4 roi_align] within tolerance of the plain version: "
+    log("[4 roi_align] equal to the plain version bit for bit: "
         + "; ".join(lines))
     return {"max_abs_err": worst}
 
@@ -561,11 +572,12 @@ def dcn_bwd_error(got, want, dtype, label: str) -> float:
 
 
 def phase_dcn_bwd(dev) -> dict:
-    """At each DCN geometry of YOLACT++-550 R-50, B = 8, with phase 6's
-    offsets and with none: the backward kernel against its plain version
-    (computed in f32 on the same values), f32 and bf16."""
+    """At each DCN geometry of YOLACT++-550 R-50 and at DCN_RAGGED (8-byte
+    vectors and float2 reductions), B = 8, with phase 6's offsets and with
+    none: the backward kernel against its plain version (computed in f32
+    on the same values), f32 and bf16."""
     worst, lines = 0.0, []
-    for h, w, c, st in DCN_SHAPES:
+    for h, w, c, st in DCN_SHAPES + (DCN_RAGGED,):
         errs = []
         for zero in (False, True):
             for dt in (torch.float32, torch.bfloat16):
@@ -1425,6 +1437,7 @@ def kernel_args(module, name: str, fn) -> tuple:
 
 def phase_timing(dev, pred, train: dict, card: str) -> dict:
     from tpuseg_torch.kernels import nms as nms_kernel
+    from tpuseg_torch.kernels import roi_align as roi_kernel
 
     times = {}
     with torch.inference_mode():
@@ -1440,13 +1453,21 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
             alone = cuda_time_ms(lambda: nms_kernel.nms_keep(*args), iters)
             times[f"nms B=2 {label}"] = (k, p) + nms_bound(
                 boxes, scores, valid, classes, thr) + (None, alone)
-        for n, pp in ((2000, 7), (200, 14)):
+        # the forward's shapes, then the training step's
+        for n, pp in ((2000, 7), (200, 14)) + BWD_SHAPES:
             for dt in (torch.float32, torch.bfloat16):
                 case = roi_case(dev, n, dt)
-                k, p = time_pair(lambda: run_roi(case, pp), iters=10)
+
+                def roi():
+                    return run_roi(case, pp)
+
+                k, p = time_pair(roi, iters=10)
+                args = kernel_args(roi_kernel, "multilevel_roi_align", roi)
+                alone = cuda_time_ms(
+                    lambda: roi_kernel.multilevel_roi_align(*args), 10)
                 size = torch.tensor([], dtype=dt).element_size()
                 times[f"roi_align {str(dt)[6:]} N={n} P={pp}"] = (
-                    (k, p) + roi_fwd_bound(case, pp, size))
+                    (k, p) + roi_fwd_bound(case, pp, size) + (None, alone))
         for n, pp in BWD_SHAPES:
             for dt in (torch.float32, torch.bfloat16):
                 case = bwd_case(dev, n, pp, dt)
@@ -1469,7 +1490,7 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
                 f"({t[1]:.3f} ms) [{card}]")
         else:
             alone = (f" (the kernel launch alone {t[5]:.4f} ms)"
-                     if name.startswith("nms") else "")
+                     if len(t) > 5 else "")
             log(f"[12 timing] {name}: kernel {t[0]:.4f} ms{alone}, plain "
                 f"{t[1]:.4f} ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
 
@@ -1592,21 +1613,46 @@ def time_yolact_train(dev, yt: dict, card: str) -> dict:
     host's time to build one B = 8 batch; the YOLACT++ training step at
     B = 8 (forward, backward, SGD; TF32 convolutions as train() runs it),
     kernels against plain."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+
     times = {}
     for h, w, c, st in DCN_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             feats, sy, sx, m = dcn_case(dev, h, w, c, st, dt)
             grad = dcn_grad(dev, feats, sy)
-            k, p = time_pair(lambda: run_dcn_bwd(grad, feats, sy, sx, m),
-                             iters=10)
+
+            def bwd():
+                return run_dcn_bwd(grad, feats, sy, sx, m)
+
+            k, p = time_pair(bwd, iters=10)
+            args = kernel_args(dcn_kernel, "sample_points_backward", bwd)
+            alone = cuda_time_ms(
+                lambda: dcn_kernel.sample_points_backward(*args), 10)
             lib = cuda_time_ms(grid_sample_backward(feats, sy, sx, m, grad),
                                iters=10)
             name = (f"dcn_sample_bwd {str(dt)[6:]} B={DCN_BATCH} "
                     f"{h}x{w}x{c} s{st}")
-            times[name] = (k, p) + dcn_bwd_bound(feats, sy, sx) + (lib,)
-            log(f"[12 timing] {name}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-                f"bound {times[name][2]:.4g} ms by {times[name][3]}, "
-                f"grid_sample backward {lib:.4f} ms [{card}]")
+            times[name] = ((k, p) + dcn_bwd_bound(feats, sy, sx)
+                           + (lib, alone))
+            log(f"[12 timing] {name}: kernel {k:.4f} ms (the kernel launch "
+                f"alone {alone:.4f} ms), plain {p:.4f} ms, bound "
+                f"{times[name][2]:.4g} ms by {times[name][3]}, grid_sample "
+                f"backward {lib:.4f} ms [{card}]")
+            if (h, w, c, st) == (69, 69, 128, 1):
+                # the launch alone with d feats only (the scattered adds
+                # and the gradient's reads) and with the coordinates only
+                # (the gradient's and the corners' reads, no adds): which
+                # of the two sets the pace
+                split = {}
+                for part, flags in (("d feats only", (True, False)),
+                                    ("coordinates only", (False, True))):
+                    split[part] = cuda_time_ms(
+                        lambda: dcn_kernel.sample_points_backward(
+                            *args[:5], *flags), 10)
+                    log(f"[12 timing] {name}, {part}: kernel "
+                        f"{split[part]:.4f} ms, the launch alone; both "
+                        f"{alone:.4f} ms [{card}]")
+                times[name + " split"] = split
     cfg, data = yt["cfg"], yt["data"]
     batches = YTL.batch_iterator(data, cfg, np.random.default_rng(SEED + 14),
                                  YOLACT_BATCH)
@@ -1650,7 +1696,7 @@ def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
              # gradient) without torchvision, which is not a dependency;
              # grid_sample computes DCN sampling, its backward the sampler's
              "library_ms": t[4] if len(t) > 4 else None}
-    if len(t) > 5:  # NMS: the launch alone, without the sort around it
+    if len(t) > 5:  # the launch alone, without the dispatch around it
         entry["kernel_alone_ms"] = t[5]
     return entry
 
@@ -1723,6 +1769,7 @@ def main() -> int:
 
     log(f"[13 total] {time.perf_counter() - start:.1f} s from the start of "
         "main to the end of the timings (the kernels' build included)")
+    k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
         kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
                      "tpuseg/ops/pallas/nms_pl.py:138", launches("nms"),
@@ -1741,11 +1788,12 @@ def main() -> int:
                       "tpuseg/ops/pallas/dcn_pl.py:212"],
                      launches("dcn_sample"), dcn_res["max_abs_err"],
                      times[f"dcn_sample float32 B={DCN_BATCH} 69x69x128 s1"]),
-        kernel_entry("dcn_sample_bwd", "tpuseg_torch/csrc/dcn_sample_bwd.cu",
-                     "tpuseg/ops/pallas/dcn_pl.py:311",
-                     launches("dcn_sample_bwd"), dcn_bwd_res["max_abs_err"],
-                     times[f"dcn_sample_bwd float32 B={DCN_BATCH} "
-                           "69x69x128 s1"]),
+        {**kernel_entry("dcn_sample_bwd",
+                        "tpuseg_torch/csrc/dcn_sample_bwd.cu",
+                        "tpuseg/ops/pallas/dcn_pl.py:311",
+                        launches("dcn_sample_bwd"),
+                        dcn_bwd_res["max_abs_err"], times[k4c]),
+         "kernel_alone_split_ms": times[k4c + " split"]},
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -106,6 +106,40 @@ def test_roi_align_kernel_matches_plain(dtype, p):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["ragged", "unaligned"])
+def test_roi_align_kernel_narrow_paths(dtype, layout):
+    """The kernel's narrower vectors: C = 130 (8 bytes in f32, 4 in bf16),
+    or C = 64 with every level a channels-last view whose storage starts
+    one element past a 16-byte boundary (one element at a time). Rois on
+    all four levels. Still equal to the plain version bit for bit."""
+    dev = _device()
+    c = 130 if layout == "ragged" else 64
+    g = torch.Generator().manual_seed(c)
+    feats = []
+    for h, w in ((50, 80), (25, 40), (13, 20), (7, 10)):
+        f = torch.randn(2, c, h, w, generator=g).to(dev, dtype)
+        if layout == "unaligned":
+            flat = torch.empty(f.numel() + 1, dtype=dtype, device=dev)
+            view = flat[1:].view(2, h, w, c).permute(0, 3, 1, 2)
+            view.copy_(f)
+            assert view.is_contiguous(memory_format=torch.channels_last)
+            assert view.data_ptr() % 16
+            f = view
+        feats.append(f)
+    rng = np.random.default_rng(c)
+    boxes = torch.from_numpy(_boxes(rng, (300,))).to(dev)
+    boxes[:5] -= 30.0  # past the top-left border
+    bidx = torch.from_numpy(rng.integers(0, 2, 300)).to(dev)
+    levels = sampling.clamp_levels_to_window(
+        feats, boxes, torch.from_numpy(rng.integers(0, 4, 300)).to(dev))
+    assert len(torch.unique(levels)) == 4
+    got = sampling.multilevel_roi_align(feats, boxes, bidx, levels, 7, 2)
+    with kernels.force_plain():
+        want = sampling.multilevel_roi_align(feats, boxes, bidx, levels, 7, 2)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 def _assert_bwd_close(got, want_f32, dtype):
     """f32: atomics add in an order that changes from run to run, so the
     kernel meets the plain backward to rounding, atol 1e-5 max|ref| and
@@ -258,12 +292,14 @@ def _assert_points_bwd_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [64, 128, 512])
+@pytest.mark.parametrize("c", [64, 128, 130, 512])
 @pytest.mark.parametrize("modulated", [True, False])
 def test_dcn_sample_backward_kernel_matches_plain(dtype, c, modulated):
     """S = 1001 samples over the map, past its border and wholly outside,
     a quarter of them on integer rows; against
-    sample_points_backward_plain computed in f32 on the same values."""
+    sample_points_backward_plain computed in f32 on the same values. C =
+    130 takes the narrower vectors (8 bytes in f32, 4 in bf16) and float2
+    reductions. Also d feats alone and the coordinates alone."""
     dev = _device()
     rng = np.random.default_rng(10 + c)
     b, h, w, s = 2, 19, 23, 1001

@@ -45,3 +45,24 @@ def test_smoke_ab_reads_each_timing_in_ms():
         "train step B=2 800x1344": 56.869,
         "dcn_sample bfloat16 B=8 69x69x128 s1": 0.0651,
         "run_batch float32 B=8 550x550": 27.693}
+
+
+def test_smoke_ab_reads_the_launch_alone_and_the_split_of_each_kernel():
+    """RoIAlign's and the DCN backward's lines carry the launch alone as
+    NMS's do; the DCN backward's split lines read as timings of their own."""
+    card = "[NVIDIA H100 80GB HBM3, 700.00 W]"
+    log = "\n".join([
+        "[12 timing] roi_align float32 N=1024 P=7: kernel 0.1500 ms (the "
+        "kernel launch alone 0.1200 ms), plain 3.2000 ms, bound 0.03 ms by "
+        f"bytes {card}",
+        "[12 timing] dcn_sample_bwd float32 B=8 69x69x128 s1: kernel 0.2000 "
+        "ms (the kernel launch alone 0.1800 ms), plain 8.6 ms, bound 0.06649 "
+        f"ms by bytes, grid_sample backward 3.3 ms {card}",
+        "[12 timing] dcn_sample_bwd float32 B=8 69x69x128 s1, d feats only: "
+        f"kernel 0.1400 ms, the launch alone; both 0.1800 ms {card}"])
+    assert smoke_ab.timings(log) == {
+        "roi_align float32 N=1024 P=7": 0.15,
+        "roi_align float32 N=1024 P=7 (launch alone)": 0.12,
+        "dcn_sample_bwd float32 B=8 69x69x128 s1": 0.2,
+        "dcn_sample_bwd float32 B=8 69x69x128 s1 (launch alone)": 0.18,
+        "dcn_sample_bwd float32 B=8 69x69x128 s1, d feats only": 0.14}

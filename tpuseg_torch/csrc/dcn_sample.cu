@@ -51,82 +51,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace {
 
+using namespace tpuseg_vec;
+
 constexpr int kThreads = 256;
-
-// One feature element as raw bits: its value in f32 and back.
-template <typename T>
-struct Elem;
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float get(uint32_t bits) {
-    return __uint_as_float(bits);
-  }
-  static __device__ __forceinline__ uint32_t put(float v) {
-    return __float_as_uint(v);
-  }
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float get(uint32_t bits) {
-    return __uint_as_float(bits << 16);
-  }
-  static __device__ __forceinline__ uint32_t put(float v) {
-    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(v));
-  }
-};
-
-// BYTES of contiguous memory as 32-bit words (a 2-byte load fills the low
-// half of word 0), read through the read-only path or written as streaming
-// stores (the output is not read again by this kernel).
-template <int BYTES>
-struct Raw;
-template <>
-struct Raw<16> {
-  static __device__ __forceinline__ void load(const void* p, uint32_t* w) {
-    const uint4 v = __ldg((const uint4*)p);
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(void* p, const uint32_t* w) {
-    __stcs((uint4*)p, make_uint4(w[0], w[1], w[2], w[3]));
-  }
-};
-template <>
-struct Raw<8> {
-  static __device__ __forceinline__ void load(const void* p, uint32_t* w) {
-    const uint2 v = __ldg((const uint2*)p);
-    w[0] = v.x, w[1] = v.y;
-  }
-  static __device__ __forceinline__ void store(void* p, const uint32_t* w) {
-    __stcs((uint2*)p, make_uint2(w[0], w[1]));
-  }
-};
-template <>
-struct Raw<4> {
-  static __device__ __forceinline__ void load(const void* p, uint32_t* w) {
-    w[0] = __ldg((const unsigned int*)p);
-  }
-  static __device__ __forceinline__ void store(void* p, const uint32_t* w) {
-    __stcs((unsigned int*)p, w[0]);
-  }
-};
-template <>
-struct Raw<2> {
-  static __device__ __forceinline__ void load(const void* p, uint32_t* w) {
-    w[0] = __ldg((const unsigned short*)p);
-  }
-  static __device__ __forceinline__ void store(void* p, const uint32_t* w) {
-    __stcs((unsigned short*)p, (unsigned short)w[0]);
-  }
-};
-
-// element e of VEC packed elements of type T in 32-bit words
-template <typename T>
-__device__ __forceinline__ float unpack(const uint32_t* w, int e) {
-  if (sizeof(T) == 4) return Elem<T>::get(w[e]);
-  return Elem<T>::get((w[e >> 1] >> (16 * (e & 1))) & 0xffffu);
-}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -136,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ m, int h, int w, int c, int s,
                       int lanes_log2, T* __restrict__ out) {
   constexpr int kBytes = VEC * (int)sizeof(T);
-  constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  constexpr int kWords = words<T, VEC>();
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & (lanes - 1);
   const int sample =
@@ -215,19 +146,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The widest vector (in elements) that divides the row and both pointers.
-template <typename T>
-int pick_vec(const void* feats, const void* out, int c) {
-  const int row = c * (int)sizeof(T);
-  for (int bytes = 16; bytes > (int)sizeof(T); bytes >>= 1) {
-    if (row % bytes == 0 && (uintptr_t)feats % bytes == 0 &&
-        (uintptr_t)out % bytes == 0) {
-      return bytes / (int)sizeof(T);
-    }
-  }
-  return 1;
-}
-
 template <typename T, int VEC>
 int launch_vec(const void* feats, const void* sy, const void* sx,
                const void* m, int batch, int h, int w, int c, int s, void* out,
@@ -249,7 +167,8 @@ template <typename T>
 int launch(const void* feats, const void* sy, const void* sx, const void* m,
            int batch, int h, int w, int c, int s, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (pick_vec<T>(feats, out, c) * (int)sizeof(T)) {
+  // the widest vector that divides the row and both pointers
+  switch (widest_vector(c * (int)sizeof(T), (int)sizeof(T), {feats, out})) {
     case 16:
       return launch_vec<T, (int)(16 / sizeof(T))>(feats, sy, sx, m, batch, h, w, c,
                                             s, out, st);

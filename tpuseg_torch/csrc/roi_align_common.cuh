@@ -60,14 +60,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Element idx of a channels-last [N, P, P, C] array -> (roi, ph, pw, ch).
 struct Bin {
@@ -137,6 +129,40 @@ __device__ __forceinline__ bool sample_axis(float t, int extent, Axis* a) {
   a->whi = __fsub_rn(tc, t0);
   a->wlo = __fsub_rn(1.0f, a->whi);
   return true;
+}
+
+// One entry of a roi's sample tables (roi_align.cu): a sample's Axis
+// along rows or columns and whether it lies inside [-1, extent].
+struct AxisEntry {
+  Axis a;
+  bool valid;
+};
+
+// Sample i of bin `cell` along one axis of a roi (origin, bin size) on a
+// level of that extent, as sample_axis(sample_coord(...)) gives it.
+__device__ __forceinline__ AxisEntry axis_entry(float origin, float bin,
+                                                int cell, int i, int s,
+                                                int extent) {
+  AxisEntry e;
+  e.a = Axis{0, 0, 0.0f, 0.0f};
+  e.valid = sample_axis(sample_coord(origin, bin, cell, i, s), extent, &e.a);
+  return e;
+}
+
+// The sample tables of a roi (roi_align.cu): entries ph * S + iy its P * S
+// row samples, then P * S + pw * S + ix its column samples, filled by the
+// block's threads in a strided loop. The caller synchronises the block
+// before reading them.
+__device__ __forceinline__ void fill_roi_tables(const RoiGeom& geo,
+                                                const Level& L, int p, int s,
+                                                AxisEntry* tab) {
+  for (int t = threadIdx.x; t < 2 * p * s; t += blockDim.x) {
+    const bool row = t < p * s;
+    const int j = row ? t : t - p * s;
+    const int cell = j / s, i = j - cell * s;
+    tab[t] = row ? axis_entry(geo.y1, geo.bin_h, cell, i, s, L.h)
+                 : axis_entry(geo.x1, geo.bin_w, cell, i, s, L.w);
+  }
 }
 
 }  // namespace tpuseg_roi

@@ -27,6 +27,7 @@ from tpuseg_torch.engine.trainer import (ckpt_path, make_yolact_optimizer,
                                          yolact_lr_schedule)
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.models import yolact_loss as YL
+from tpuseg_torch.weights.yolact_map import load_yolact_weights
 
 LOSS_KEYS = ("B", "C", "M", "S", "I")
 MAX_GT = 32  # gt slots per image in a batch's padded targets
@@ -126,7 +127,7 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     ``configs.presets.yolact_loss_config`` gives a preset's (YOLACT++: the
     FastMaskIoUNet term). ``model`` defaults to ``build_model`` with random
     weights from seed 0; ``resume`` loads a ``<cfg>_<epoch>_<iter>.pth``
-    and continues from its iteration (``start_iter`` >= 0 overrides it).
+    through ``load_yolact_weights`` and continues from its iteration (``start_iter`` >= 0 overrides it).
     BatchNorm trains (batch statistics, running statistics updated) unless
     the batch is below 6, where yolact disables it (``freeze_bn``).
     Augmentation draws from ``numpy.random.default_rng(42)``, the
@@ -139,9 +140,8 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     if model is None:
         model = Y.build_model(model_cfg, torch.Generator().manual_seed(0))
     it = 0
-    if resume:
-        model.load_state_dict(torch.load(resume, map_location="cpu",
-                                         weights_only=True), strict=True)
+    if resume:  # through the weight map, as tpuseg's resume
+        model.load_state_dict(load_yolact_weights(resume), strict=True)
         it = parse_ckpt_iter(resume) if start_iter < 0 else start_iter
     model.freeze_bn = batch_size < 6
     model = model.to(dev).train()

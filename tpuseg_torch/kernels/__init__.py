@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("nms.cu", "roi_align.cu", "roi_align_bwd.cu", "dcn_sample.cu",
            "dcn_sample_bwd.cu")
-HEADERS = ("roi_align_common.cuh",)  # hashed with the sources
+HEADERS = ("roi_align_common.cuh", "vec_io.cuh")  # hashed with the sources
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

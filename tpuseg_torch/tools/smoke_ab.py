@@ -31,7 +31,7 @@ ALONE = re.compile(r"the kernel launch alone ([\d.]+) ms")
 
 
 def timings(log: str) -> dict:
-    """{name: ms} of a smoke's [12 timing] lines; a NMS line's launch alone
+    """{name: ms} of a smoke's [12 timing] lines; a kernel line's launch alone
     as '<name> (launch alone)'."""
     out = {}
     for line in log.splitlines():

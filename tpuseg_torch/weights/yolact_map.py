@@ -9,7 +9,7 @@ the two the FPN has.
 """
 from __future__ import annotations
 
-import torch
+from tpuseg_torch.weights.torch_io import flatten_state_dict, load_torch_file
 
 NUM_DOWNSAMPLE = 2
 
@@ -29,7 +29,7 @@ def upstream_keys(state_dict: dict) -> dict:
 
 
 def load_yolact_weights(path: str) -> dict:
-    """Read an upstream YOLACT ``.pth`` (a flat state_dict) -> the state_dict
-    for ``Yolact.load_state_dict(strict=True)``."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return upstream_keys(sd)
+    """Read an upstream YOLACT ``.pth`` (a flat state_dict; any file and
+    container that ``weights/torch_io.py`` reads) -> the state_dict for
+    ``Yolact.load_state_dict(strict=True)``."""
+    return upstream_keys(flatten_state_dict(load_torch_file(path)))
