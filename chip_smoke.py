@@ -16,10 +16,13 @@ Phases, one line each; any failure raises and exits non-zero:
      |ref| + 1e-3, ref the plain version computed in f32 on the same bf16
      inputs;
   5. the RoIAlign backward kernel against its plain version at the training
-     step's shapes (f32: atol 1e-5 max|ref|, rtol 1e-5, since atomics add in
-     an order that changes from run to run; bf16: |err| <= 2^-8 |ref| +
-     1e-3 against the plain version in f32), and the differentiable
-     pooler's feature gradient against the kernel's;
+     step's shapes, at a ragged C (130, the narrow vector reductions, with
+     d(pooled) channels-last) and at P = 14 with rois that touch more
+     columns than the kernel merges (its direct adds) (f32: atol 1e-5 max|ref|,
+     rtol 1e-5, since atomics add in an order that changes from run to run;
+     bf16: |err| <= 2^-8 |ref| + 1e-3 against the plain version in f32),
+     and the differentiable pooler's feature gradient against the
+     kernel's;
   6. the DCN sampling kernel against its plain version at the six DCN
      geometries of YOLACT++-550 R-50, B = 8, and at a ragged C (130, the
      kernel's narrow path): f32 and bf16 bit for bit, bf16 also as
@@ -59,8 +62,10 @@ Phases, one line each; any failure raises and exits non-zero:
      sampling also against grid_sample, its backward against
      grid_sample's; NMS, RoIAlign and the DCN backward also the kernel
      launch alone, without the torch work of the dispatch around it;
-     RoIAlign also at the training step's shapes; the DCN backward at
-     69x69x128 also with d feats only and with the coordinates only),
+     RoIAlign also at the training step's shapes; the RoIAlign backward
+     also with direct adds only, and the vector reductions of its two
+     designs counted on the host; the DCN backward at 69x69x128 also with
+     d feats only and with the coordinates only),
      Mask R-CNN forward img/s at B = 1 and 2 and its
      training step at B = 2 on the 800x1344 canvas, YOLACT++ forward and
      run_batch img/s at B = 1 and 8 in f32 and bf16, and its training step
@@ -119,6 +124,9 @@ PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2,
 # the backward's shapes at B = 2: the box pooler's 2 x 512 sampled rois at
 # P = 7 and the mask pooler's 2 x 128 at P = 14
 BWD_SHAPES = ((1024, 7), (256, 14))
+# csrc/roi_align_bwd.cu's kMaxCols: a roi whose samples touch more columns
+# of its level adds its corners directly, without merging
+BWD_MAX_COLS = 32
 PIXEL_VAR = 75.0 ** 2  # of textured_image's pixels less the pixel mean
 # DCN offset convs' weights: N(0, 1/fan) times this, so the offsets have a
 # standard deviation of 1.5-3.5 px (see synthetic_yolact_state_dict)
@@ -333,16 +341,24 @@ def phase_roi_align(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def bwd_case(dev, n: int, p: int, dtype=torch.float32):
-    """(d(pooled) [N, 256, P, P], boxes, batch_idx, levels, level shapes)."""
-    g = torch.Generator().manual_seed(SEED + 5 + n)
-    shapes = [(2, 256, h, w) for h, w in LEVEL_HW]
+def bwd_case(dev, n: int, p: int, dtype=torch.float32, c: int = 256,
+             large: bool = False):
+    """(d(pooled) [N, C, P, P], boxes, batch_idx, levels, level shapes).
+    ``large``: boxes of 120-240 px all on P2 (30-60 cells a side), which
+    at P = 14 touch more columns than the kernel merges."""
+    g = torch.Generator().manual_seed(SEED + 5 + n + c + large)
+    shapes = [(2, c, h, w) for h, w in LEVEL_HW]
     boxes = random_boxes(g, (n,), dev)
+    if large:
+        side = torch.empty(n, 2).uniform_(120, 240, generator=g).to(dev)
+        boxes[:, 2:] = (boxes[:, :2] + side).clamp(max=CANVAS[1] - 1)
+        boxes[:, 3] = boxes[:, 3].clamp(max=CANVAS[0] - 1)
     bidx = torch.randint(0, 2, (n,), generator=g).to(dev)
     probe = [torch.empty(sh, dtype=dtype, device="meta") for sh in shapes]
-    levels = sampling.clamp_levels_to_window(probe, boxes,
-                                             M.assign_levels(boxes), STRIDES)
-    grad = torch.randn(n, 256, p, p, generator=g).to(dev, dtype)
+    levels = (torch.zeros(n, dtype=torch.int64, device=dev) if large else
+              sampling.clamp_levels_to_window(probe, boxes,
+                                              M.assign_levels(boxes), STRIDES))
+    grad = torch.randn(n, c, p, p, generator=g).to(dev, dtype)
     return grad, boxes, bidx, levels, shapes
 
 
@@ -379,19 +395,28 @@ def bwd_error(got, want, dtype, label: str) -> float:
 
 def phase_roi_align_bwd(dev) -> dict:
     worst, lines = 0.0, []
-    for n, p in BWD_SHAPES:
+    # the training shapes; a ragged C with d(pooled) channels-last; P = 14
+    # with large rois (the kernel's direct adds)
+    cases = [(n, p, 256, False, False) for n, p in BWD_SHAPES] + [
+        (*BWD_SHAPES[0], 130, False, True), (*BWD_SHAPES[1], 256, True, False)]
+    for n, p, c, large, cl in cases:
         for dt in (torch.float32, torch.bfloat16):
-            case = bwd_case(dev, n, p, dt)
+            case = bwd_case(dev, n, p, dt, c, large)
+            if cl:
+                case = (case[0].contiguous(memory_format=torch.channels_last),
+                        *case[1:])
             got = run_bwd(case, p, dt)
             grad, boxes, bidx, levels, shapes = case
             with kernels.force_plain():
                 want = sampling.multilevel_roi_align_backward(
                     grad.float(), boxes, bidx, levels, shapes, torch.float32,
                     p, 2, STRIDES)
-            err = bwd_error(got, want, dt, f"N={n} P={p} {dt}")
+            label = (f"N={n} P={p} C={c}" + (" large rois" if large else "")
+                     + (" channels-last d(pooled)" if cl else ""))
+            err = bwd_error(got, want, dt, f"{label} {dt}")
             if dt == torch.float32:
                 worst = max(worst, err)
-            lines.append(f"N={n} P={p} {str(dt)[6:]} max err {err:.3g}")
+            lines.append(f"{label} {str(dt)[6:]} max err {err:.3g}")
     # the differentiable pooler on channels-last levels that need grad:
     # one forward and one backward launch, and .grad equal to the kernel's
     # output for the same d(pooled)
@@ -1417,6 +1442,42 @@ def roi_bwd_bound(n: int, p: int, itemsize: int) -> tuple:
     return roi_bound(n, p, pyramid_bytes(itemsize), itemsize)
 
 
+def bwd_merge_counts(boxes, bidx, levels, p: int, s: int = 2, c: int = 256,
+                     level_hw=LEVEL_HW, strides=STRIDES) -> dict:
+    """What the RoIAlign backward kernel adds into the global buffers on
+    these rois, counted from the forward's geometry with C = ``c`` in float4
+    vectors: ``corner_adds``, the direct design's vector reductions (each
+    valid sample's four corners); ``flushes``, the merging design's (each
+    cell that a roi's valid samples touch, once per vector, where they
+    touch at most BWD_MAX_COLS columns, else its corners; a vector of
+    zeros is skipped on the card, so these are at most); and
+    ``direct_share``, the share of rois (and so of blocks) that add
+    directly."""
+    lat, _, _ = sampling._pyramid_lattice(level_hw, boxes.float(), bidx,
+                                          levels, p, s, strides)
+
+    def axis(t, extent):
+        """-> valid samples, distinct touched cells of each roi."""
+        e = extent[:, None]
+        valid = (t >= -1.0) & (t <= e)
+        lo = torch.floor(torch.minimum(t.clamp(min=0.0), e - 1))
+        hi = torch.minimum(lo + 1, e - 1)
+        cells = torch.cat([lo, hi], 1).masked_fill(
+            ~torch.cat([valid, valid], 1), -1.0).sort(1).values
+        distinct = (((cells[:, 1:] != cells[:, :-1]) & (cells[:, 1:] >= 0))
+                    .sum(1) + (cells[:, 0] >= 0))
+        return valid.sum(1), distinct
+
+    vy, ty = axis(lat.ys, lat.h)
+    vx, tx = axis(lat.xs, lat.w)
+    vectors = c // 4
+    corners = 4 * vy * vx * vectors
+    fits = tx <= BWD_MAX_COLS
+    flushes = torch.where(fits, ty * tx * vectors, corners)
+    return {"corner_adds": int(corners.sum()), "flushes": int(flushes.sum()),
+            "direct_share": float((~fits).float().mean())}
+
+
 def kernel_args(module, name: str, fn) -> tuple:
     """The arguments with which ``fn()`` calls ``module.name`` (a kernel
     wrapper that the dispatch imports at call time): to time the launch
@@ -1471,10 +1532,31 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
         for n, pp in BWD_SHAPES:
             for dt in (torch.float32, torch.bfloat16):
                 case = bwd_case(dev, n, pp, dt)
-                k, p = time_pair(lambda: run_bwd(case, pp, dt), iters=10)
+
+                def bwd():
+                    return run_bwd(case, pp, dt)
+
+                k, p = time_pair(bwd, iters=10)
+                args = kernel_args(roi_kernel, "multilevel_roi_align_backward",
+                                   bwd)
+                alone = cuda_time_ms(
+                    lambda: roi_kernel.multilevel_roi_align_backward(*args),
+                    10)
                 size = torch.tensor([], dtype=dt).element_size()
-                times[f"roi_align_bwd {str(dt)[6:]} N={n} P={pp}"] = (
-                    (k, p) + roi_bwd_bound(n, pp, size))
+                name = f"roi_align_bwd {str(dt)[6:]} N={n} P={pp}"
+                times[name] = ((k, p) + roi_bwd_bound(n, pp, size)
+                               + (None, alone))
+                # the launch alone with every roi adding directly (the
+                # first design): whether merging in shared memory pays
+                times[name + " direct"] = cuda_time_ms(
+                    lambda: roi_kernel.multilevel_roi_align_backward(
+                        *args, False), 10)
+                # the wrapper's zero-filled f32 buffer alone, in both
+                times[name + " zero-fill"] = cuda_time_ms(
+                    lambda: torch.zeros(pyramid_bytes(4) // 4, device=dev),
+                    10)
+                if dt == torch.float32:
+                    times[name + " merge"] = bwd_merge_counts(*case[1:4], pp)
         landscape, _ = synthetic_images(SEED)
         for b in (1, 2):
             images, image_hw = canvas_batch(pred, landscape[:b])
@@ -1483,7 +1565,19 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
                 iters=5)
             times[f"forward B={b} 800x1344"] = (k, p)
     for name, t in times.items():
-        if name.startswith("forward"):
+        if name.endswith(" direct"):
+            log(f"[12 timing] {name[:-7]}, direct adds only: kernel "
+                f"{t:.4f} ms, the launch alone; merging "
+                f"{times[name[:-7]][5]:.4f} ms [{card}]")
+        elif name.endswith(" zero-fill"):
+            log(f"[12 timing] {name[:-10]}, the zero-filled f32 buffer "
+                f"alone: kernel {t:.4f} ms [{card}]")
+        elif name.endswith(" merge"):
+            log(f"[12 merge] {name[:-6]}: {t['flushes']} vector reductions "
+                f"merged against {t['corner_adds']} direct "
+                f"({t['flushes'] / t['corner_adds']:.3f}); "
+                f"{100 * t['direct_share']:.1f} % of the rois add directly")
+        elif name.startswith("forward"):
             b = int(name.split("B=")[1][0])
             log(f"[12 timing] {name}: kernels {1e3 * b / t[0]:.2f} img/s "
                 f"({t[0]:.3f} ms), plain {1e3 * b / t[1]:.2f} img/s "
@@ -1769,6 +1863,7 @@ def main() -> int:
 
     log(f"[13 total] {time.perf_counter() - start:.1f} s from the start of "
         "main to the end of the timings (the kernels' build included)")
+    k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
         kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
@@ -1779,10 +1874,12 @@ def main() -> int:
                      "tpuseg/ops/pallas/roi_align_pl.py:576",
                      launches("roi_align"), roi_res["max_abs_err"],
                      times["roi_align float32 N=2000 P=7"]),
-        kernel_entry("roi_align_bwd", "tpuseg_torch/csrc/roi_align_bwd.cu",
-                     "tpuseg/ops/pallas/roi_align_pl.py:390",
-                     launches("roi_align_bwd"), bwd_res["max_abs_err"],
-                     times["roi_align_bwd float32 N=1024 P=7"]),
+        {**kernel_entry("roi_align_bwd",
+                        "tpuseg_torch/csrc/roi_align_bwd.cu",
+                        "tpuseg/ops/pallas/roi_align_pl.py:390",
+                        launches("roi_align_bwd"), bwd_res["max_abs_err"],
+                        times[k3]),
+         "kernel_alone_direct_ms": times[k3 + " direct"]},
         kernel_entry("dcn_sample", "tpuseg_torch/csrc/dcn_sample.cu",
                      ["tpuseg/ops/pallas/dcn_pl.py:60",
                       "tpuseg/ops/pallas/dcn_pl.py:212"],

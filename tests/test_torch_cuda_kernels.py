@@ -155,27 +155,80 @@ def _assert_bwd_close(got, want_f32, dtype):
                          <= 2.0 ** -8 * w.abs() + 1e-3).all())
 
 
+# cases of the backward kernel's branches: rois of a mixed size; tiny rois
+# whose samples all fall in one or two cells (the most merging); rois past
+# the image border; 300 copies of one roi (every block flushes into the
+# same cells); rois of 30-60 cells on P2 (at P = 14 more columns than the
+# kernel merges: its direct adds); S = 1 and 3; a ragged C (130: float2,
+# 6: one float); d(pooled) one element past a 16-byte boundary, and
+# channels-last
+BWD_CASES = ["mixed", "tiny", "border", "copies", "large", "s1", "s3",
+             "c130", "c6", "unaligned", "channels_last"]
+
+
+def _bwd_inputs(case, p, dtype, dev):
+    n, c = 300, {"c130": 130, "c6": 6}.get(case, 64)
+    shapes = [(2, c, h, w) for h, w in ((50, 80), (25, 40), (13, 20), (7, 10))]
+    rng = np.random.default_rng(p + len(case))
+    boxes = _boxes(rng, (n,))
+    boxes[:5] -= 30.0  # past the top-left border
+    if case == "tiny":
+        xy = rng.uniform(0, 300, (n, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(0.5, 6, (n, 2))], 1)
+    elif case == "border":
+        xy = rng.uniform(-60, 320, (n, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(20, 120, (n, 2))], 1)
+    elif case == "copies":
+        boxes[:] = boxes[7]
+    elif case == "large":
+        xy = rng.uniform(0, 150, (n, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(120, 240, (n, 2))], 1)
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    bidx = torch.from_numpy(rng.integers(0, 2, n)).to(dev)
+    if case == "copies":
+        bidx[:] = 1
+    if case in ("tiny", "large"):
+        levels = torch.zeros(n, dtype=torch.int64, device=dev)
+    else:
+        levels = sampling.clamp_levels_to_window(
+            [torch.empty(sh, device="meta") for sh in shapes], boxes,
+            assign_levels(boxes))
+    g = torch.Generator().manual_seed(10 + p)
+    grad = torch.randn(n, c, p, p, generator=g).to(dev, dtype)
+    if case == "unaligned":
+        flat = torch.empty(grad.numel() + 1, dtype=dtype, device=dev)
+        view = flat[1:].view(grad.shape)
+        view.copy_(grad)
+        assert view.data_ptr() % 16
+        grad = view
+    elif case == "channels_last":
+        grad = grad.contiguous(memory_format=torch.channels_last)
+    s = {"s1": 1, "s3": 3}.get(case, 2)
+    return grad, boxes, bidx, levels, shapes, s
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [7, 14])
-def test_roi_align_backward_kernel_matches_plain(dtype, p):
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_roi_align_backward_kernel_matches_plain(dtype, p, case):
     dev = _device()
-    g = torch.Generator().manual_seed(10 + p)
-    shapes = [(2, 64, h, w) for h, w in ((50, 80), (25, 40), (13, 20), (7, 10))]
-    rng = np.random.default_rng(p)
-    boxes = torch.from_numpy(_boxes(rng, (300,))).to(dev)
-    boxes[:5] -= 30.0  # past the top-left border
-    bidx = torch.from_numpy(rng.integers(0, 2, 300)).to(dev)
-    feats = [torch.zeros(sh, device=dev, dtype=dtype) for sh in shapes]
-    levels = sampling.clamp_levels_to_window(feats, boxes, assign_levels(boxes))
-    grad = torch.randn(300, 64, p, p, generator=g).to(dev, dtype)
+    grad, boxes, bidx, levels, shapes, s = _bwd_inputs(case, p, dtype, dev)
     before = kernels.launch_counts()["roi_align_bwd"]
     got = sampling.multilevel_roi_align_backward(grad, boxes, bidx, levels,
-                                                 shapes, dtype, p, 2)
+                                                 shapes, dtype, p, s)
     assert kernels.launch_counts()["roi_align_bwd"] == before + 1
     with kernels.force_plain():
         want = sampling.multilevel_roi_align_backward(
-            grad.float(), boxes, bidx, levels, shapes, torch.float32, p, 2)
+            grad.float(), boxes, bidx, levels, shapes, torch.float32, p, s)
     _assert_bwd_close(got, want, dtype)
+    assert sum(float(w.abs().sum()) for w in want) > 0
+    # the first design, every roi adding directly: the same sums
+    from tpuseg_torch.kernels.roi_align import multilevel_roi_align_backward
+
+    direct = multilevel_roi_align_backward(
+        grad, boxes.float(), bidx.int(), levels.int(), shapes, dtype, p, s,
+        (4, 8, 16, 32), False)
+    _assert_bwd_close(direct, want, dtype)
 
 
 def test_pooler_autograd_uses_both_kernels():

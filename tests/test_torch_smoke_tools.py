@@ -66,3 +66,32 @@ def test_smoke_ab_reads_the_launch_alone_and_the_split_of_each_kernel():
         "dcn_sample_bwd float32 B=8 69x69x128 s1": 0.2,
         "dcn_sample_bwd float32 B=8 69x69x128 s1 (launch alone)": 0.18,
         "dcn_sample_bwd float32 B=8 69x69x128 s1, d feats only": 0.14}
+
+
+def test_bwd_merge_counts_on_hand_built_rois():
+    """The RoIAlign backward's reductions, counted on one 40 x 40 level at
+    stride 4, C = 256 (64 float4 vectors a cell): a roi of one cell (all
+    its 14 x 14 samples on the cells 2-3 of each axis: 4 cells flushed
+    against 784 corners, 3136 at P = 14) and a roi spanning the level. At P = 7 the
+    latter's samples lie 2.9 cells apart: 28 x 28 touched cells, one flush
+    per corner. At P = 14 they lie 1.4 apart and touch all 40 columns, more
+    than the kernel merges (32): the roi adds directly."""
+    import torch
+
+    boxes = torch.tensor([[8.0, 8.0, 12.0, 12.0], [0.0, 0.0, 160.0, 160.0]])
+    bidx = torch.zeros(2, dtype=torch.int64)
+    levels = torch.zeros(2, dtype=torch.int64)
+
+    def counts(p):
+        return chip_smoke.bwd_merge_counts(boxes, bidx, levels, p, 2, 256,
+                                           [(40, 40)], (4,))
+
+    assert counts(7) == {"corner_adds": 2 * 4 * 14 * 14 * 64,
+                         "flushes": 4 * 64 + 28 * 28 * 64,
+                         "direct_share": 0.0}
+    assert counts(14) == {"corner_adds": 2 * 4 * 28 * 28 * 64,
+                          "flushes": 4 * 64 + 4 * 28 * 28 * 64,
+                          "direct_share": 0.5}
+    one = chip_smoke.bwd_merge_counts(boxes[:1], bidx[:1], levels[:1], 14, 2,
+                                      256, [(40, 40)], (4,))
+    assert one["flushes"] == 4 * 64 and one["direct_share"] == 0.0

@@ -82,19 +82,6 @@ using namespace tpuseg_vec;
 
 constexpr int kThreads = 256;
 
-// Add VEC (4, 2 or 1) f32 values into p (aligned to 4 * VEC bytes) with
-// one vector reduction: sm_90's atomicAdd on float4 and float2.
-template <int VEC>
-__device__ __forceinline__ void red_add(float* p, const float* v) {
-  if constexpr (VEC == 4) {
-    atomicAdd((float4*)p, make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (VEC == 2) {
-    atomicAdd((float2*)p, make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(p, v[0]);
-  }
-}
-
 // Sum over the `lanes` lanes of each group (aligned, a power of two); every
 // lane of the warp takes part.
 __device__ __forceinline__ float group_sum(float v, int lanes) {

@@ -1,6 +1,8 @@
 // Channels moved in vectors of 16, 8, 4 or 2 bytes, f32 or bf16 elements
-// held as raw 32-bit words: shared by the kernels that give each lane a
-// vector of channels (dcn_sample.cu, dcn_sample_bwd.cu, roi_align.cu).
+// held as raw 32-bit words, and added into f32 gradients by vector
+// reductions: shared by the kernels that give each lane a vector of
+// channels (dcn_sample.cu, dcn_sample_bwd.cu, roi_align.cu,
+// roi_align_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -116,6 +118,19 @@ __device__ __forceinline__ void store_f32(T* p, const float* v) {
     }
   }
   Raw<VEC * (int)sizeof(T)>::store(p, w);
+}
+
+// Add VEC (4, 2 or 1) f32 values into p (aligned to 4 * VEC bytes) with
+// one vector reduction: sm_90's atomicAdd on float4 and float2.
+template <int VEC>
+__device__ __forceinline__ void red_add(float* p, const float* v) {
+  if constexpr (VEC == 4) {
+    atomicAdd((float4*)p, make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (VEC == 2) {
+    atomicAdd((float2*)p, make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
 }
 
 // Host side: the widest of 16, 8, 4 and 2 bytes that divides a row of

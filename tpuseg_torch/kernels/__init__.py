@@ -48,11 +48,12 @@ _SIGNATURES = {
     "tpuseg_roi_align_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
                               _I, _P, _P],
     # as the forward, with grad ptrs[L] (f32, added into) first and the
-    # pooled gradient in place of out
+    # pooled gradient in place of out, then whether it is NCHW (else
+    # channels-last) and whether to merge in shared memory
     "tpuseg_roi_align_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
-                                 _I, _I, _P, _P],
+                                 _I, _I, _P, _I, _I, _P],
     "tpuseg_roi_align_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
-                                  _I, _I, _P, _P],
+                                  _I, _I, _P, _I, _I, _P],
     # feats, sy, sx, m (or null), B, H, W, C, S, out, stream
     "tpuseg_dcn_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tpuseg_dcn_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],

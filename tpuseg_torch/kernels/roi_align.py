@@ -42,12 +42,12 @@ def _pyramid_args(ptrs, level_hw, strides) -> tuple:
 
 
 def _launch(entry, arrays, b, c, boxes, batch_idx, levels, n, p, s, tensor,
-            dev) -> None:
+            dev, *flags) -> None:
     fn = getattr(K.library(), entry)
     with torch.cuda.device(dev):
         status = fn(*(ctypes.addressof(a) for a in arrays), len(arrays[0]),
                     b, c, boxes.data_ptr(), batch_idx.data_ptr(),
-                    levels.data_ptr(), n, p, s, tensor.data_ptr(),
+                    levels.data_ptr(), n, p, s, tensor.data_ptr(), *flags,
                     K.stream_ptr(dev))
     K.check_status(status, entry)
 
@@ -86,31 +86,40 @@ def multilevel_roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
                                   batch_idx: torch.Tensor,
                                   levels: torch.Tensor, feat_shapes,
                                   dtype: torch.dtype, output_size: int,
-                                  sampling_ratio: int, strides) -> tuple:
-    """grad: d(pooled) [N, P, P, C] contiguous (channels-last pooled
-    layout), f32 or bf16; ``feat_shapes`` the levels' [B, C, H_l, W_l];
-    boxes, batch_idx, levels as the forward. -> per-level d(feats)
-    [B, C, H_l, W_l] in ``dtype`` (channels-last storage), accumulated in
-    zeroed f32 buffers and cast once."""
+                                  sampling_ratio: int, strides,
+                                  merge: bool = True) -> tuple:
+    """grad: d(pooled) [N, C, P, P], f32 or bf16, contiguous or
+    channels-last (the kernel reads either layout); ``feat_shapes`` the
+    levels' [B, C, H_l, W_l]; boxes, batch_idx, levels as the forward.
+    ``merge=False`` adds every corner straight into the buffers, without
+    summing a roi's adds in shared memory first (to time and test the
+    kernel's direct branch on any rois).
+    -> per-level d(feats) [B, C, H_l, W_l] in ``dtype`` (channels-last
+    storage), accumulated in zeroed f32 buffers and cast once."""
     dev = grad.device
     if dev.type != "cuda":
         raise ValueError(f"roi_align_bwd kernel: grad on {dev}, expected CUDA")
-    K.check_tensor(grad, "grad", device=dev, dtypes=tuple(_ENTRY_BWD), ndim=4)
+    nchw = grad.is_contiguous()
+    K.check_tensor(grad, "grad", device=dev, dtypes=tuple(_ENTRY_BWD), ndim=4,
+                   channels_last=not nchw)
     if dtype not in _ENTRY:
         raise ValueError(f"roi_align_bwd kernel: feature dtype {dtype}")
     n = _check_rois(boxes, batch_idx, levels, dev)
     b, c = feat_shapes[0][:2]
     p, s = output_size, sampling_ratio
-    if grad.shape != (n, p, p, c) or any(tuple(sh[:2]) != (b, c)
+    if grad.shape != (n, c, p, p) or any(tuple(sh[:2]) != (b, c)
                                          for sh in feat_shapes):
         raise ValueError(f"roi_align_bwd kernel: grad {tuple(grad.shape)}, "
                          f"levels {[tuple(sh) for sh in feat_shapes]}")
-    acc = [torch.zeros((b, sh[2], sh[3], c), dtype=torch.float32, device=dev)
-           for sh in feat_shapes]
-    arrays = _pyramid_args([a.data_ptr() for a in acc],
+    # one zeroed f32 buffer for all levels (one fill, one cast)
+    sizes = [b * sh[2] * sh[3] * c for sh in feat_shapes]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    parts = acc.split(sizes)
+    arrays = _pyramid_args([a.data_ptr() for a in parts],
                            [tuple(sh[2:]) for sh in feat_shapes], strides)
     if n:
         _launch(_ENTRY_BWD[grad.dtype], arrays, b, c, boxes, batch_idx,
-                levels, n, p, s, grad, dev)
+                levels, n, p, s, grad, dev, int(nchw), int(merge))
         K.LAUNCHES["roi_align_bwd"] += 1
-    return tuple(a.permute(0, 3, 1, 2).to(dtype) for a in acc)
+    return tuple(a.view(b, sh[2], sh[3], c).permute(0, 3, 1, 2)
+                 for a, sh in zip(acc.to(dtype).split(sizes), feat_shapes))

@@ -257,9 +257,12 @@ def _kernel_backward(grad_pooled, boxes, batch_idx, levels, feat_shapes,
                      dtype, p, s, strides):
     from tpuseg_torch.kernels import roi_align as K
 
+    if not (grad_pooled.is_contiguous() or grad_pooled.is_contiguous(
+            memory_format=torch.channels_last)):
+        grad_pooled = grad_pooled.contiguous()  # e.g. expanded, stride 0
     return K.multilevel_roi_align_backward(
-        grad_pooled.permute(0, 2, 3, 1).contiguous(),
-        boxes.float().contiguous(), batch_idx.to(torch.int32).contiguous(),
+        grad_pooled, boxes.float().contiguous(),
+        batch_idx.to(torch.int32).contiguous(),
         levels.to(torch.int32).contiguous(), feat_shapes, dtype, p, s, strides)
 
 
