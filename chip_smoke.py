@@ -69,13 +69,32 @@ Phases, one line each; any failure raises and exits non-zero:
      Mask R-CNN forward img/s at B = 1 and 2 and its
      training step at B = 2 on the 800x1344 canvas, YOLACT++ forward and
      run_batch img/s at B = 1 and 8 in f32 and bf16, and its training step
-     at B = 8, through both paths, with the host's batch time apart.
+     at B = 8, through both paths, with the host's batch time apart;
+  13. the COCO data path, from a dataset the smoke writes to its temporary
+     directory (16 PNG images, alternately landscape 640x480 and portrait
+     480x640, 10 polygon objects and an uncompressed-RLE crowd each,
+     category ids from COCO's 91-id space) and checkpoints of the synthetic
+     weights: the reader (every target; the ground truth scored against
+     itself by COCOeval, AP 1.0), the decode at the images' own size
+     (equal to the written pixels), DevicePrefetcher's uploads of the
+     YOLACT++ batches (equal bit for bit); evaluate_coco of
+     MaskRCNNPredictor at 800/1333 and evaluate_dataset of YOLACT++-550
+     (with its COCO jsons), each through the kernels and the plain versions
+     (TF32 off, deterministic cuDNN: the detections equal bit for bit, the
+     json dumps byte for byte, the stats and maps equal or within 1e-3);
+     the four CLIs through their main() (test_net and yolact_eval on 8
+     images, train_net and yolact_train for 5 steps, losses finite), each
+     one's launches counted; timings of the reader, the decode, both
+     evaluations and the training CLIs' s/it (the median interval after
+     the first step's).
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
@@ -92,14 +111,24 @@ import torch.nn.functional as F
 from tpuseg_torch import kernels
 from tpuseg_torch.configs.presets import (yolact_loss_config,
                                           yolact_model_config)
+from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
+from tpuseg_torch.data.native_loader import NativeImageLoader
+from tpuseg_torch.data.prefetch import DevicePrefetcher
 from tpuseg_torch.engine import detectron_train_loop as TL
+from tpuseg_torch.engine import maskrcnn_engine as ME
+from tpuseg_torch.engine import yolact_engine as YE
 from tpuseg_torch.engine import yolact_train_loop as YTL
-from tpuseg_torch.engine.maskrcnn_engine import (MaskRCNNPredictor,
+from tpuseg_torch.engine.maskrcnn_engine import (COCO_CATEGORY_IDS,
+                                                 MaskRCNNPredictor,
                                                  preprocess_image_bgr)
 from tpuseg_torch.engine.trainer import (ckpt_path, make_optimizer,
                                          make_yolact_optimizer,
                                          yolact_lr_schedule)
+from tpuseg_torch.data.image_io import resize_bilinear_u8
 from tpuseg_torch.engine.yolact_engine import YolactPredictor
+from tpuseg_torch.eval import rle, yolact_map
+from tpuseg_torch.eval.coco import COCO
+from tpuseg_torch.eval.cocoeval import COCOeval
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import yolact as YM
 from tpuseg_torch.models import yolact_loss as YLOSS
@@ -193,6 +222,19 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+@contextlib.contextmanager
+def exact_convs():
+    """TF32 off and deterministic cuDNN, so that two runs differ only where
+    the kernels do."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = prev
 
 
 def random_boxes(g: torch.Generator, shape, dev, extent=CANVAS, clusters=40):
@@ -1248,10 +1290,7 @@ def phase_yolact_train(dev, tmp: Path) -> dict:
                        generator=torch.Generator(device=dev).manual_seed(
                            SEED + 13))
     batch = (images, targets, priors, draws, loss_cfg)
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    try:
+    with exact_convs():
         model.freeze_bn = True
         model.train()
         kernels.reset_launch_counts()
@@ -1265,8 +1304,6 @@ def phase_yolact_train(dev, tmp: Path) -> dict:
         with kernels.force_plain():
             runs += [yolact_step_grads(model, *batch) for _ in range(2)]
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = prev
     if path_counts != YOLACT_PER_STEP:
         raise AssertionError(f"YOLACT kernel-path step launched {path_counts}")
     # atol 1e-5 max|g|, not phase 9's 1e-6: an offset conv's gradient sums,
@@ -1781,6 +1818,509 @@ def time_yolact_train(dev, yt: dict, card: str) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the COCO data path
+# ---------------------------------------------------------------------------
+
+COCO_IMAGES = 16  # alternately landscape 640x480 and portrait 480x640
+COCO_OBJECTS = 10  # polygon objects an image, plus one crowd region
+COCO_BATCH = 2  # evaluate_coco's batch (each orientation bucket fills)
+CLI_TRAIN_STEPS = 5  # the first interval is warm-up; s/it is the median
+
+
+def write_coco_dataset(root: Path, seed: int) -> tuple:
+    """A COCO dataset on disk: COCO_IMAGES PNG images of textured_image
+    with COCO_OBJECTS elliptic polygon objects painted in, and an instances
+    json with those polygons (category ids drawn from COCO's 91-id space)
+    and one uncompressed-RLE crowd rectangle an image -> (image dir, json
+    path, {image id: the written RGB pixels})."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True)
+    images, anns, pixels = [], [], {}
+    t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    for i in range(1, COCO_IMAGES + 1):
+        h, w = (480, 640) if i % 2 else (640, 480)
+        img = textured_image(rng, h, w)
+        for _ in range(COCO_OBJECTS):
+            bw, bh = rng.uniform(0.05, 0.4, 2) * [w, h]
+            x, y = rng.uniform(0, 1, 2) * ([w, h] - np.asarray([bw, bh]))
+            poly = np.stack([x + bw / 2 * (1 + np.cos(t)),
+                             y + bh / 2 * (1 + np.sin(t))], 1).round(2)
+            m = rle.decode(rle.poly_to_rle(poly.reshape(-1), h, w)) > 0
+            img[m] = rng.integers(0, 256, 3)
+            lo, hi = poly.min(0), poly.max(0)
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
+                         "bbox": [float(lo[0]), float(lo[1]),
+                                  float(hi[0] - lo[0]), float(hi[1] - lo[1])],
+                         "area": float(m.sum()), "iscrowd": 0,
+                         "segmentation": [poly.reshape(-1).tolist()]})
+        cw, ch = (int(v) for v in rng.integers(40, 120, 2))
+        cx, cy = int(rng.integers(0, w - cw)), int(rng.integers(0, h - ch))
+        crowd = np.zeros((h, w), np.uint8)
+        crowd[cy:cy + ch, cx:cx + cw] = 1
+        anns.append({"id": len(anns) + 1, "image_id": i,
+                     "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
+                     "bbox": [float(cx), float(cy), float(cw), float(ch)],
+                     "area": float(cw * ch), "iscrowd": 1, "segmentation": {
+                         "size": [h, w],
+                         "counts": rle.encode_counts(crowd).tolist()}})
+        Image.fromarray(img).save(img_dir / f"{i:012d}.png")
+        images.append({"id": i, "height": h, "width": w,
+                       "file_name": f"{i:012d}.png"})
+        pixels[i] = img
+    ann = root / "instances.json"
+    ann.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": c, "name": f"c{c}"}
+                       for c in COCO_CATEGORY_IDS]}))
+    return str(img_dir), str(ann), pixels
+
+
+@contextlib.contextmanager
+def quiet():
+    """The engines' and CLIs' console tables into a buffer, kept out of the
+    smoke's output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        yield buf
+
+
+@contextlib.contextmanager
+def clocked(owner, names: tuple):
+    """Wrap ``owner``'s methods ``names`` to add their seconds to the
+    yielded list's one element."""
+    acc = [0.0]
+    orig = {n: getattr(owner, n) for n in names}
+
+    def wrap(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        return run
+
+    for n in names:
+        setattr(owner, n, wrap(orig[n]))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            setattr(owner, n, orig[n])
+
+
+@contextlib.contextmanager
+def step_starts(module):
+    """The host clock at the start of each ``module.train_step`` call: one
+    iteration, host included, is the interval between two."""
+    starts = []
+    orig = module.train_step
+
+    def timed(*args, **kwargs):
+        starts.append(time.perf_counter())
+        return orig(*args, **kwargs)
+
+    module.train_step = timed
+    try:
+        yield starts
+    finally:
+        module.train_step = orig
+
+
+class RecordingPredictor:
+    """A Mask R-CNN predictor's calls passed through, its detections kept."""
+
+    def __init__(self, pred: MaskRCNNPredictor):
+        self.pred, self.results = pred, []
+
+    def run_on_bgr_image(self, img):
+        return self.run_on_bgr_images([img])[0]
+
+    def run_on_bgr_images(self, imgs):
+        out = self.pred.run_on_bgr_images(imgs)
+        self.results += out
+        return out
+
+
+def require_same_detections(got: list, want: list, what: str) -> None:
+    """Two runs' per-image detections must be equal bit for bit; raises
+    with the largest difference of each field otherwise."""
+    if [len(r["scores"]) for r in got] != [len(r["scores"]) for r in want]:
+        raise AssertionError(f"{what}: kernels vs plain give other "
+                             "per-image detection counts")
+    err = {k: max((float(np.abs(g[k].astype(np.float64) - w[k]).max())
+                   for g, w in zip(got, want) if len(g[k])), default=0.0)
+           for k in ("boxes", "scores", "classes", "masks")}
+    if any(err.values()):
+        raise AssertionError(
+            f"{what}: kernels vs plain detections differ, largest " + ", ".join(
+                f"{k} {v:.3g}" for k, v in err.items()))
+
+
+def shares(parts: dict, wall: float) -> str:
+    """'name x.xx s' for each part, then the rest of ``wall``."""
+    rest = wall - sum(parts.values())
+    return ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()) + (
+        f", the rest {rest:.2f} s")
+
+
+def agree(got: dict, want: dict, n_got: int, n_want: int, what: str) -> str:
+    """Two runs' metrics (name -> number or array): equal, or every one
+    within 1e-3 with equal detection counts; raises otherwise."""
+    if got.keys() != want.keys() or n_got != n_want:
+        raise AssertionError(f"{what}: kernels vs plain give {n_got} vs "
+                             f"{n_want} detections")
+    diff = max(float(np.max(np.abs(np.asarray(got[k], np.float64)
+                                   - np.asarray(want[k], np.float64))))
+               for k in want)
+    if diff > 1e-3:
+        raise AssertionError(f"{what}: kernels vs plain differ by {diff:.3g}")
+    return ("equal" if diff == 0 else f"within {diff:.3g}") + (
+        f", {n_got} detections on both paths")
+
+
+def phase_coco_data(dev, tmp: Path, card: str) -> dict:
+    """The reader (every target, masks included; the ground truth scored
+    against itself), the decode at the images' own size, and the
+    prefetcher's uploads."""
+    img_dir, ann, pixels = write_coco_dataset(tmp / "coco", SEED + 20)
+    ds = CocoDetectionDataset(img_dir, ann)
+    t0 = time.perf_counter()
+    targets = {i: ds.load_target(i) for i in ds.image_ids}
+    reader_ms = (time.perf_counter() - t0) * 1e3 / len(targets)
+    for i, t in targets.items():
+        h, w = pixels[i].shape[:2]
+        if (t["masks"].shape != (COCO_OBJECTS + 1, h, w)
+                or int(t["iscrowd"].sum()) != 1 or not (
+                    t["masks"].sum((1, 2)) > 0).all()):
+            raise AssertionError(f"image {i}: targets {t['masks'].shape}")
+    gt_ap = {}
+    for iou_type in ("bbox", "segm"):
+        res = [{"image_id": a["image_id"], "category_id": a["category_id"],
+                "score": 1.0, **({"bbox": a["bbox"]} if iou_type == "bbox"
+                                 else {"segmentation": ds.coco.annToRLE(a)})}
+               for a in ds.coco.dataset["annotations"] if not a["iscrowd"]]
+        E = COCOeval(ds.coco, ds.coco.loadRes(res), iou_type)
+        with quiet():
+            E.evaluate()
+            E.accumulate()
+            E.summarize()
+        if E.stats[0] != 1.0 or E.stats[1] != 1.0:
+            raise AssertionError(f"gt against itself, {iou_type}: "
+                                 f"{E.stats}")
+        gt_ap[iou_type] = float(E.stats[0])
+    log(f"[13 coco] reader: {len(targets)} images, "
+        f"{sum(len(t['classes']) for t in targets.values())} targets with "
+        f"masks (a crowd each); the ground truth against itself, crowds left "
+        f"out: bbox AP {gt_ap['bbox']}, segm AP {gt_ap['segm']}")
+
+    loader = NativeImageLoader()
+    for hw in ((480, 640), (640, 480)):
+        ids = [i for i in ds.image_ids if pixels[i].shape[:2] == hw]
+        out, got_hw = loader.load_batch([ds.image_path(i) for i in ids], *hw)
+        if not all(np.array_equal(out[j], pixels[i])
+                   for j, i in enumerate(ids)) or (got_hw != hw).any():
+            raise AssertionError(f"decode at {hw}: pixels differ")
+    paths = [ds.image_path(i) for i in ds.image_ids[:YOLACT_BATCH]]
+    loader.load_batch(paths, 550, 550)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        loader.load_batch(paths, 550, 550)
+    decode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    decoder = "native (libjpeg/libpng)" if loader.is_native else (
+        "PIL (the native loader does not build here)")
+    log(f"[13 coco] decode through {decoder}: all {len(ds)} images at "
+        f"their own size equal the written PNG pixels")
+
+    cfg = yolact_model_config("yolact_plus_resnet50")
+    batches = YTL.batch_iterator(ds, cfg, np.random.default_rng(SEED + 21),
+                                 YOLACT_BATCH)
+    host = [next(batches) for _ in range(len(ds) // YOLACT_BATCH)]
+    n = 0
+    for i, (images, tgts) in enumerate(DevicePrefetcher(
+            lambda i: host[i], len(host), device=dev)):
+        pairs = [(images, host[i][0])] + [(tgts[k], host[i][1][k])
+                                          for k in host[i][1]]
+        for got, want in pairs:
+            if got.device != dev or not torch.equal(
+                    got.cpu(), torch.from_numpy(want)):
+                raise AssertionError(f"prefetched batch {i} differs")
+            n += 1
+    log(f"[13 coco] DevicePrefetcher: {len(host)} YOLACT++ B = "
+        f"{YOLACT_BATCH} batches ({n} tensors) on {dev}, equal to the host's "
+        "bit for bit")
+    log(f"[13 timing] reader load_target: {reader_ms:.2f} ms per image "
+        f"(640x480, {COCO_OBJECTS} polygons and a crowd, masks included) "
+        f"[{card}]")
+    log(f"[13 timing] decode B={YOLACT_BATCH} to 550x550 through "
+        f"{decoder}: {decode_ms:.1f} ms per batch, mean of 3 [{card}]")
+    return {"ds": ds, "img_dir": img_dir, "ann": ann, "pixels": pixels,
+            "times": {"reader ms per image": reader_ms,
+                      "decode ms per batch": decode_ms}}
+
+
+def phase_coco_maskrcnn(dev, data: dict, tmp: Path, card: str) -> dict:
+    """evaluate_coco of MaskRCNNPredictor at 800/1333 over the dataset,
+    through the kernels and the plain versions (exact_convs): stats equal.
+    Then a run with the default convolutions, timed."""
+    cfg = M.MaskRCNNConfig()
+    ckpt = tmp / "e2e_mask_rcnn_R_50_FPN_synthetic.pth"
+    torch.save({"model": synthetic_state_dict(M.build_model(cfg), SEED)}, ckpt)
+    pred = MaskRCNNPredictor(cfg, weights=str(ckpt), device=dev)
+    ds = data["ds"]
+    runs = {}
+    with exact_convs():
+        for path, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", kernels.force_plain)):
+            recording = RecordingPredictor(pred)
+            kernels.reset_launch_counts()
+            with ctx(), quiet():
+                stats = ME.evaluate_coco(recording, ds, batch_size=COCO_BATCH,
+                                         progress=False)
+            torch.cuda.synchronize()
+            runs[path] = (stats, recording.results, kernels.launch_counts())
+    (stats, dets, counts), (pstats, pdets, pcounts) = (runs["kernels"],
+                                                       runs["plain"])
+    forwards = len(ds) // COCO_BATCH
+    want = {"nms": 6 * forwards, "roi_align": 2 * forwards,
+            "roi_align_bwd": 0, "dcn_sample": 0, "dcn_sample_bwd": 0}
+    if counts != want or any(pcounts.values()):
+        raise AssertionError(f"evaluate_coco launched {counts} (plain "
+                             f"{pcounts}); want {want}")
+    if stats.keys() != {"bbox", "segm"} or not all(
+            s.shape == (12,) and np.isfinite(s).all()
+            for s in stats.values()):
+        raise AssertionError(f"evaluate_coco stats {stats}")
+    verdict = agree(stats, pstats, *(sum(len(r["scores"]) for r in d)
+                                     for d in (dets, pdets)), "evaluate_coco")
+    require_same_detections(dets, pdets, "evaluate_coco")
+    with clocked(COCOeval, ("evaluate", "accumulate", "summarize")) as ev, \
+            clocked(COCO, ("loadRes",)) as lr, \
+            clocked(MaskRCNNPredictor, ("run_on_bgr_images",)) as fwd, \
+            clocked(rle, ("encode",)) as enc, \
+            clocked(CocoDetectionDataset, ("load_image",)) as load, quiet():
+        t0 = time.perf_counter()
+        ME.evaluate_coco(pred, ds, batch_size=COCO_BATCH, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = shares({"decode": load[0], "predictor (preprocess, forward, "
+                    "paste, copy back)": fwd[0], "RLE encode": enc[0],
+                    "COCOeval": ev[0] + lr[0]}, wall)
+    log(f"[13 coco] evaluate_coco, MaskRCNNPredictor R-50-FPN at "
+        f"{pred.min_image_size}/{pred.max_image_size}, "
+        f"B = {COCO_BATCH} by orientation, {len(ds)} images, kernels vs "
+        f"plain (TF32 off, deterministic cuDNN): bbox and segm stats "
+        f"{verdict}; the detections (boxes, scores, classes, masks) equal bit "
+        f"for bit; launches {counts} (6 NMS + 2 "
+        f"RoIAlign per forward); "
+        f"bbox AP {stats['bbox'][0]:.4f}, segm AP {stats['segm'][0]:.4f}")
+    log(f"[13 timing] evaluate_coco {len(ds)} images 640x480 at "
+        f"{pred.min_image_size}/{pred.max_image_size}, B={COCO_BATCH}, "
+        f"kernels, TF32 convs: {len(ds) / wall:.2f} img/s "
+        f"end to end ({wall:.2f} s): {split} (COCOeval: loadRes, evaluate, "
+        f"accumulate, summarize; bbox and segm) [{card}]")
+    return {"ckpt": str(ckpt), "counts": counts,
+            "times": {"evaluate_coco img/s": len(ds) / wall,
+                      "cocoeval s": ev[0] + lr[0]}}
+
+
+def phase_coco_yolact(dev, data: dict, tmp: Path, card: str) -> dict:
+    """evaluate_dataset of YolactPredictor (yolact_plus_resnet50 at 550,
+    f32, B = 8) over the dataset with the COCO json dumps, through the
+    kernels and the plain versions (exact_convs): maps and jsons equal.
+    Then eval.py's mAP mode with the default convolutions, timed."""
+    name = "yolact_plus_resnet50"
+    cfg = yolact_model_config(name)
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(model, SEED),
+                          strict=True)
+    model = model.to(dev)
+    ds = data["ds"]
+    images = np.stack([resize_bilinear_u8(data["pixels"][i], cfg.img_size,
+                                          cfg.img_size)
+                       for i in ds.image_ids])
+    shift = calibrate_yolact_gate(
+        model, yolact_preprocess(torch.from_numpy(images).to(dev),
+                                 cfg.img_size), want=(10, 500), margin=0.0)
+    ckpt = tmp / f"{name}_synthetic.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    del model
+    pred = YolactPredictor(cfg, weights=str(ckpt), batch_size=YOLACT_BATCH,
+                           device=dev)
+    runs = {}
+    with exact_convs():
+        for path, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", kernels.force_plain)):
+            prefix = tmp / f"{path}" / "yolact"
+            kernels.reset_launch_counts()
+            with ctx(), quiet():
+                maps = YE.evaluate_dataset(pred, ds, progress=False,
+                                           output_coco_json=str(prefix))
+            torch.cuda.synchronize()
+            dumps = {kind: Path(f"{prefix}_{kind}.json").read_text()
+                     for kind in ("bbox", "mask")}
+            runs[path] = (maps, dumps, kernels.launch_counts())
+    (maps, dumps, counts), (pmaps, pdumps, pcounts) = (runs["kernels"],
+                                                       runs["plain"])
+    forwards = -(-len(ds) // YOLACT_BATCH)
+    want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+            "dcn_sample": sum(DCN_PER_FORWARD) * forwards,
+            "dcn_sample_bwd": 0}
+    if counts != want or any(pcounts.values()):
+        raise AssertionError(f"evaluate_dataset launched {counts} (plain "
+                             f"{pcounts}); want {want}")
+    n, pn = (len(json.loads(d["bbox"])) for d in (dumps, pdumps))
+    flat = {f"{t} {k}": v for t in maps for k, v in maps[t].items()}
+    pflat = {f"{t} {k}": v for t in pmaps for k, v in pmaps[t].items()}
+    verdict = agree(flat, pflat, n, pn, "evaluate_dataset")
+    for kind in dumps:
+        if dumps[kind] != pdumps[kind]:  # boxes, RLEs, classes and scores
+            raise AssertionError(f"evaluate_dataset: the {kind} json dumps "
+                                 "of kernels and plain differ")
+    if not np.isfinite(list(flat.values())).all() or n == 0:
+        raise AssertionError(f"evaluate_dataset: maps {maps}, {n} detections")
+    with clocked(YolactPredictor, ("postprocess_image",)) as post, \
+            clocked(yolact_map, ("prep_metrics",)) as prep, \
+            clocked(CocoDetectionDataset, ("load_target",)) as tgt, quiet():
+        t0 = time.perf_counter()
+        YE.evaluate_dataset(pred, ds, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = shares({"postprocess_image (masks upsampled on the host)":
+                    post[0], "load_target": tgt[0],
+                    "prep_metrics": prep[0]}, wall)
+    log(f"[13 coco] evaluate_dataset, YolactPredictor {name} at "
+        f"{cfg.img_size} f32, B = {YOLACT_BATCH} (background logit "
+        f"+{shift:.2f}), {len(ds)} images, kernels vs plain (TF32 off, "
+        f"deterministic cuDNN): all_maps {verdict}; the two COCO jsons "
+        f"equal byte for byte; launches {counts} ({sum(DCN_PER_FORWARD)} DCN "
+        f"samplings per forward); box mAP {maps['box']['all']:.4f}, mask "
+        f"mAP {maps['mask']['all']:.4f}")
+    log(f"[13 timing] evaluate_dataset {len(ds)} images 640x480, {name} "
+        f"{cfg.img_size} f32 B={YOLACT_BATCH}, TF32 convs (decode, forward, "
+        f"postprocess, mAP): {len(ds) / wall:.2f} img/s end to end "
+        f"({wall:.2f} s): {split} (forward, copy back, the decode's wait, "
+        f"calc_map) [{card}]")
+    return {"ckpt": str(ckpt), "counts": counts,
+            "times": {"evaluate_dataset img/s": len(ds) / wall}}
+
+
+def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
+               card: str) -> dict:
+    """The four CLIs through their main(), on the card (their default),
+    over the dataset on disk and the checkpoints: test_net and yolact_eval
+    on 8 images, train_net and yolact_train for CLI_TRAIN_STEPS steps.
+    Launches counted for each; the training CLIs' losses finite; s/it,
+    host included, is the median interval between two steps' starts after
+    the first (the first holds the first step's warm-up; all are
+    printed)."""
+    from tpuseg_torch.tools import test_net, train_net, yolact_eval, yolact_train
+
+    img_dir, ann = data["img_dir"], data["ann"]
+    yaml = str(Path(__file__).resolve().parent / "configs"
+               / "e2e_mask_rcnn_R_50_FPN_1x.yaml")
+    # training starts from stable weights: phase 9's and phase 11's schemes
+    cfg = M.MaskRCNNConfig()
+    sd = synthetic_state_dict(M.build_model(cfg), SEED + 7)
+    sd["backbone.body.stem.bn1.running_var"] *= PIXEL_VAR
+    mrcnn_train = tmp / "e2e_mask_rcnn_R_50_FPN_train_init.pth"
+    torch.save({"model": sd}, mrcnn_train)
+    ycfg = yolact_model_config("yolact_plus_resnet50")
+    model = YM.build_model(ycfg)
+    yolact_train_init = tmp / "yolact_plus_resnet50_0_0.pth"
+    torch.save(synthetic_yolact_state_dict(model, SEED + 11,
+                                           offset_scale=TRAIN_OFFSET_SCALE),
+               yolact_train_init)
+    del model
+
+    def run(main, argv, module=None):
+        kernels.reset_launch_counts()
+        with quiet() as out, (step_starts(module) if module
+                              else contextlib.nullcontext([])) as starts:
+            t0 = time.perf_counter()
+            result = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return result, kernels.launch_counts(), wall, starts, out.getvalue()
+
+    clis = {}
+    stats, counts, wall, _, _ = run(test_net.main, [
+        "--config-file", yaml, "--images", img_dir, "--annotations", ann,
+        "--max_images", "8", "--batch_size", "4", "MODEL.WEIGHT",
+        mrcnn["ckpt"]])
+    want = {"nms": 12, "roi_align": 4, "roi_align_bwd": 0, "dcn_sample": 0,
+            "dcn_sample_bwd": 0}
+    if counts != want or not all(np.isfinite(s).all() and s.shape == (12,)
+                                 for s in stats.values()):
+        raise AssertionError(f"test_net launched {counts}, want {want}; "
+                             f"stats {stats}")
+    clis["test_net"] = counts
+    log(f"[13 cli] test_net --config-file {Path(yaml).name} --max_images 8 "
+        f"--batch_size 4: launches {counts} (2 forwards), bbox AP "
+        f"{stats['bbox'][0]:.4f}, segm AP {stats['segm'][0]:.4f}, "
+        f"{wall:.1f} s")
+
+    lines = []
+    for name, main, argv, module, per_step in (
+            ("train_net", train_net.main, [
+                "--config-file", yaml, "--max_steps", str(CLI_TRAIN_STEPS),
+                "SOLVER.IMS_PER_BATCH", "2", "SOLVER.BASE_LR", "0.0025",
+                "SOLVER.CHECKPOINT_PERIOD", str(CLI_TRAIN_STEPS),
+                "DATASETS.IMAGES", img_dir,
+                "DATASETS.ANNOTATIONS", ann, "OUTPUT_DIR",
+                str(tmp / "train_net"), "MODEL.WEIGHT", str(mrcnn_train)],
+             TL, PER_STEP),
+            ("yolact_train", yolact_train.main, [
+                "--config", "yolact_plus_resnet50_config", "--train_images",
+                img_dir, "--train_info", ann, "--batch_size",
+                str(YOLACT_BATCH), "--max_steps", str(CLI_TRAIN_STEPS),
+                "--resume", str(yolact_train_init), "--save_folder",
+                str(tmp / "yolact_train"), "--save_interval",
+                str(CLI_TRAIN_STEPS)],
+             YTL, YOLACT_PER_STEP)):
+        history, counts, wall, starts, out = run(main, argv, module)
+        want = {k: CLI_TRAIN_STEPS * v for k, v in per_step.items()}
+        if counts != want or len(history) != CLI_TRAIN_STEPS or not all(
+                np.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"{name} launched {counts}, want {want}; "
+                                 f"losses {history}")
+        clis[name] = counts
+        gaps = np.diff(starts)
+        lines.append((name, float(np.median(gaps[1:])), gaps))
+        log(f"[13 cli] {name} {CLI_TRAIN_STEPS} steps: launches {counts}; total loss "
+            f"{[round(h['total'], 4) for h in history]}; {wall:.1f} s in "
+            f"main(); {out.strip().splitlines()[-1]}")
+
+    maps, counts, wall, _, _ = run(yolact_eval.main, [
+        "--trained_model", yolact["ckpt"], "--valid_images", img_dir,
+        "--valid_info", ann, "--max_images", "8", "--batch_size",
+        str(YOLACT_BATCH)])
+    want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+            "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0}
+    if counts != want or not np.isfinite(maps["mask"]["all"]):
+        raise AssertionError(f"yolact_eval launched {counts}, want {want}; "
+                             f"maps {maps}")
+    clis["yolact_eval"] = counts
+    log(f"[13 cli] yolact_eval --trained_model {Path(yolact['ckpt']).name} "
+        f"(config from the file name) --max_images 8: launches {counts}; box "
+        f"mAP {maps['box']['all']:.4f}, mask mAP {maps['mask']['all']:.4f}, "
+        f"{wall:.1f} s")
+    times = {}
+    for name, s_it, gaps in lines:
+        times[f"{name} s/it"] = s_it
+        log(f"[13 timing] {name} CLI: {s_it:.3f} s/it, host included (the "
+            f"median of the {len(gaps) - 1} intervals between steps' starts "
+            f"after the first, which holds the first step's warm-up: step, "
+            f"loss read, next batch built and uploaded; all intervals "
+            f"{[round(float(g), 3) for g in gaps]}) [{card}]")
+    return {"counts": clis, "times": times}
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -1849,20 +2389,34 @@ def main() -> int:
         train = phase_train(dev, Path(tmp))
         yolact = phase_yolact(dev)
         yolact_train = phase_yolact_train(dev, Path(tmp))
+    train_counts, yolact_counts = train["counts"], yolact["counts"]
+    yolact_train_counts = yolact_train["counts"]
     times = phase_timing(dev, pred, train, card)
     times.update(time_yolact(dev, yolact, card))
     times.update(time_yolact_train(dev, yolact_train, card))
+    del pred, train, yolact, yolact_train
+    with tempfile.TemporaryDirectory() as tmp:
+        data = phase_coco_data(dev, Path(tmp), card)
+        coco_mrcnn = phase_coco_maskrcnn(dev, data, Path(tmp), card)
+        coco_yolact = phase_coco_yolact(dev, data, Path(tmp), card)
+        clis = phase_clis(dev, data, coco_mrcnn, coco_yolact, Path(tmp),
+                          card)
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
-        steps, one YOLACT++ forward, three YOLACT++ training steps."""
+        steps, one YOLACT++ forward, three YOLACT++ training steps; then
+        phase 13's: evaluate_coco over 16 images, evaluate_dataset over
+        16, and each CLI's run."""
         return {"inference": infer_counts[name],
-                "training": train["counts"][name],
-                "yolact_inference": yolact["counts"][name],
-                "yolact_training": yolact_train["counts"][name]}
+                "training": train_counts[name],
+                "yolact_inference": yolact_counts[name],
+                "yolact_training": yolact_train_counts[name],
+                "coco_evaluate_coco": coco_mrcnn["counts"][name],
+                "coco_evaluate_dataset": coco_yolact["counts"][name],
+                **{f"cli_{c}": n[name] for c, n in clis["counts"].items()}}
 
-    log(f"[13 total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of the timings (the kernels' build included)")
+    log(f"[14 total] {time.perf_counter() - start:.1f} s from the start of "
+        "main to the end of phase 13 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [

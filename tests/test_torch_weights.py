@@ -33,7 +33,13 @@ SLICE_MODULES = [
     "tpuseg_torch.configs.presets", "tpuseg_torch.weights.yolact_map",
     "tpuseg_torch.engine.yolact_engine", "tpuseg_torch.tools.yolact_infer",
     "tpuseg_torch.models.yolact_loss", "tpuseg_torch.data.augment",
-    "tpuseg_torch.engine.yolact_train_loop",
+    "tpuseg_torch.engine.yolact_train_loop", "tpuseg_torch.eval.rle",
+    "tpuseg_torch.eval.coco", "tpuseg_torch.eval.cocoeval",
+    "tpuseg_torch.eval.yolact_map", "tpuseg_torch.data.coco_dataset",
+    "tpuseg_torch.data.catalog", "tpuseg_torch.data.native_loader",
+    "tpuseg_torch.data.prefetch", "tpuseg_torch.engine.config",
+    "tpuseg_torch.tools.test_net", "tpuseg_torch.tools.train_net",
+    "tpuseg_torch.tools.yolact_eval", "tpuseg_torch.tools.yolact_train",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -95,15 +101,38 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+def _path_strings(path: Path):
+    """String constants that could name the JAX package's native loader:
+    a ``..`` path part (a walk up out of the port) or its library's name."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and (
+                ".." in node.value.replace("\\", "/").split("/")
+                or "libtpuseg_loader" in node.value):
+            yield node.value
+
+
 def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
-    """Nor cv2: the port runs where OpenCV is not installed."""
+    """Nor cv2: the port runs where OpenCV is not installed. Nor does it
+    reach the JAX package's native loader (``native/``) by a path: its
+    loader builds from ``tpuseg_torch/native/``."""
     files = sorted((ROOT / "tpuseg_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for sub in ("eval", "data", "engine", "tools"):
+        new = {f"{m.rsplit('.', 1)[1]}.py" for m in SLICE_MODULES
+               if m.startswith(f"tpuseg_torch.{sub}.")}
+        assert new <= {f.name for f in files
+                       if f.parent.name == sub}, (sub, new)
     bad = [f"{f.relative_to(ROOT)}: {m}" for f in files
            for m in _imported_modules(f)
-           if m.split(".")[0] in ("tpuseg", "jax", "jaxlib", "cv2")]
+           if m.split(".")[0] in ("tpuseg", "jax", "jaxlib", "cv2", "native")]
+    bad += [f"{f.relative_to(ROOT)}: {s!r}" for f in files
+            for s in _path_strings(f)]
     assert not bad, bad
+    from tpuseg_torch.data import native_loader
+
+    assert native_loader.SOURCE.is_relative_to(ROOT / "tpuseg_torch")
+    assert native_loader.BUILD_ROOT.is_relative_to(ROOT / "build")
 
 
 def test_entry_points_default_to_the_card():

@@ -4,7 +4,8 @@ carry: plain dicts here).
 
 Upstream's ``--config=<name>_config`` chains (Yolact.jittor
 ``data/config.py``): a preset is its parent's dict updated with its own
-keys. :func:`yolact_model_config` turns one into a
+keys; its ``dataset`` names an entry of :data:`DATASETS`.
+:func:`yolact_model_config` turns one into a
 :class:`~tpuseg_torch.models.yolact.YolactConfig`, :func:`yolact_loss_config`
 into a :class:`~tpuseg_torch.models.yolact_loss.YolactLossConfig`.
 """
@@ -26,6 +27,7 @@ YOLACT_BASE = {
     "nms_thresh": 0.5,
     "nms_top_k": 200,
     "max_num_detections": 100,
+    "dataset": "coco2017_dataset",
 }
 
 # YOLACT++: DCNv2 backbone, 3 sub-scales per level, non-square anchors,
@@ -56,6 +58,29 @@ PRESETS = {
     "yolact_plus_resnet50": {**YOLACT_BASE, **_PLUS,
                              "name": "yolact_plus_resnet50",
                              "backbone": "resnet50"},
+}
+
+
+# dataset presets (yolact data/config.py dataset_base / coco2017_dataset),
+# named by each YOLACT preset's "dataset"
+DATASET_BASE = {
+    "name": "Base Dataset",
+    "train_images": "./data/coco/images/",
+    "train_info": "path_to_annotation_file",
+    "valid_images": "./data/coco/images/",
+    "valid_info": "path_to_annotation_file",
+    "has_gt": True,
+    "class_names": [],
+}
+
+DATASETS = {
+    "dataset_base": DATASET_BASE,
+    "coco2017_dataset": {
+        **DATASET_BASE, "name": "COCO 2017",
+        "train_images": "./data/coco/train2017/",
+        "train_info": "./data/coco/annotations/instances_train2017.json",
+        "valid_images": "./data/coco/val2017/",
+        "valid_info": "./data/coco/annotations/instances_val2017.json"},
 }
 
 

@@ -1,11 +1,13 @@
-"""Mask R-CNN predictor (port of ``tpuseg/engine/maskrcnn_engine.py``, FPN
-variant).
+"""Mask R-CNN predictor and COCO evaluation (port of
+``tpuseg/engine/maskrcnn_engine.py``, FPN variant; detectron.jittor
+COCODemo / tools/test_net.py parity).
 
 Host side: shortest-edge-800 resize (PIL bilinear, only when the size
 changes), BGR mean subtraction, placement on one of two static canvases
 (landscape 800x1344, portrait 1344x800). Device side: the model's forward
 on ``device``. Post: the 28x28 masks pasted into image coordinates with
-upstream Masker semantics.
+upstream Masker semantics. :func:`evaluate_coco` scores a dataset with the
+port's COCOeval (``tpuseg_torch/eval``).
 """
 from __future__ import annotations
 
@@ -150,3 +152,160 @@ class MaskRCNNPredictor:
         keep = preds["scores"] >= self.confidence_threshold
         order = np.argsort(-preds["scores"][keep], kind="stable")
         return {k: v[keep][order] for k, v in preds.items()}
+
+
+# ---------------------------------------------------------------------------
+# Config-file dispatch (yacs tree -> model config -> predictor)
+# ---------------------------------------------------------------------------
+
+
+def _cfg_get(node, path: str, default):
+    """Dotted-path lookup into a ConfigNode/dict tree with a default."""
+    cur = node
+    for part in path.split("."):
+        try:
+            cur = cur[part]
+        except (KeyError, TypeError):
+            return default
+    return cur
+
+
+def model_config_from_node(node) -> M.MaskRCNNConfig:
+    """yacs-style tree (a ConfigNode after ``merge_from_file``) ->
+    MaskRCNNConfig for GeneralizedRCNN R-50/101-FPN, with the RPN top-N
+    constants and NUM_CLASSES of the yaml. C4 and RetinaNet are not ported
+    yet (ROADMAP.md §1 item 5); MODEL.MASK_ON False (Faster R-CNN) is
+    rejected."""
+    conv_body = _cfg_get(node, "MODEL.BACKBONE.CONV_BODY", "R-50-FPN")
+    arch = _cfg_get(node, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN")
+    if arch != "GeneralizedRCNN" or not conv_body.endswith("-FPN"):
+        raise NotImplementedError(
+            f"{arch} / {conv_body}: only the FPN Mask R-CNN is ported; C4 "
+            "and RetinaNet are ROADMAP.md §1 item 5")
+    if not _cfg_get(node, "MODEL.MASK_ON", True):
+        raise ValueError("MODEL.MASK_ON False (Faster R-CNN): only the FPN "
+                         "Mask R-CNN is ported")
+
+    def get(path, default):
+        return int(_cfg_get(node, path, default))
+
+    return M.MaskRCNNConfig(
+        depth=101 if "101" in conv_body else 50,
+        rpn_pre_nms_top_n=get("MODEL.RPN.PRE_NMS_TOP_N_TEST", 1000),
+        rpn_post_nms_top_n=get("MODEL.RPN.POST_NMS_TOP_N_TEST", 1000),
+        fpn_post_nms_top_n=get("MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 1000),
+        fpn_post_nms_top_n_train=get("MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN",
+                                     2000),
+        num_classes=get("MODEL.ROI_BOX_HEAD.NUM_CLASSES", 81))
+
+
+def build_predictor_from_cfg(node, **kw) -> MaskRCNNPredictor:
+    """ConfigNode -> MaskRCNNPredictor with its model config, MODEL.WEIGHT
+    and INPUT.{MIN,MAX}_SIZE_TEST; ``kw`` goes to the predictor
+    (``device``, ``confidence_threshold``)."""
+    return MaskRCNNPredictor(
+        cfg=model_config_from_node(node),
+        weights=_cfg_get(node, "MODEL.WEIGHT", "") or None,
+        min_image_size=int(_cfg_get(node, "INPUT.MIN_SIZE_TEST", 800)),
+        max_image_size=int(_cfg_get(node, "INPUT.MAX_SIZE_TEST", 1333)),
+        **kw)
+
+
+# ---------------------------------------------------------------------------
+# COCO evaluation loop (tools/test_net.py parity)
+# ---------------------------------------------------------------------------
+
+# contiguous class id (0-based, no bg) -> COCO category id
+COCO_CATEGORY_IDS = [
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+    22, 23, 24, 25, 27, 28, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42,
+    43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61,
+    62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84,
+    85, 86, 87, 88, 89, 90,
+]
+
+
+def evaluate_coco(predictor: MaskRCNNPredictor, dataset, max_images=None,
+                  progress=True, batch_size: int = 1) -> dict:
+    """COCO bbox + segm evaluation with the port's COCOeval -> {iou_type:
+    the 12 stats}.
+
+    ``batch_size`` > 1 buckets images by orientation (each bucket shares a
+    canvas) and runs one forward per bucket batch; the leftovers of each
+    bucket run one by one. A predictor is anything with
+    ``run_on_bgr_image`` and ``run_on_bgr_images``. Boxes are written as
+    ``[x1, y1, x2 - x1 + 1, y2 - y1 + 1]`` (upstream's TO_REMOVE = 1).
+    """
+    import time
+
+    from tpuseg_torch.data.image_io import resize_bilinear_u8
+    from tpuseg_torch.eval import rle as rle_mod
+    from tpuseg_torch.eval.cocoeval import COCOeval
+
+    ids = dataset.image_ids
+    if max_images:
+        ids = ids[:max_images]
+    results = []
+    t0 = time.perf_counter()
+    n = 0
+
+    def load_bgr(iid):
+        img = dataset.load_image(iid)[:, :, ::-1]
+        info = dataset.coco.imgs[iid]
+        if img.shape[:2] != (info["height"], info["width"]):
+            # load_image decodes in the annotation frame (EXIF ignored), so
+            # a mismatch means the json metadata itself is wrong; conform
+            # the pixels so the image lands in the right orientation bucket
+            # and scores in the annotation frame
+            img = resize_bilinear_u8(img, info["height"], info["width"])
+        return img
+
+    def consume(batch_ids):
+        nonlocal n
+        imgs = [load_bgr(i) for i in batch_ids]
+        if len(imgs) == 1:  # single-image path (also duck-typed oracles)
+            preds_list = [predictor.run_on_bgr_image(imgs[0])]
+        else:
+            preds_list = predictor.run_on_bgr_images(imgs)
+        for iid, preds in zip(batch_ids, preds_list):
+            for i in range(len(preds["scores"])):
+                x1, y1, x2, y2 = preds["boxes"][i]
+                det = {
+                    "image_id": int(iid),
+                    "category_id": COCO_CATEGORY_IDS[int(preds["classes"][i])],
+                    "bbox": [float(x1), float(y1), float(x2 - x1 + 1),
+                             float(y2 - y1 + 1)],
+                    "score": float(preds["scores"][i]),
+                }
+                if "masks" in preds:
+                    det["segmentation"] = rle_mod.encode(preds["masks"][i])
+                results.append(det)
+            n += 1
+            if progress and n % 20 == 0:
+                print(f"\r{n}/{len(ids)} "
+                      f"({n / (time.perf_counter() - t0):.2f} img/s)",
+                      end="", flush=True)
+
+    buckets: dict[bool, list] = {True: [], False: []}
+    for iid in ids:
+        info = dataset.coco.imgs[iid]
+        landscape = info["width"] >= info["height"]
+        buckets[landscape].append(iid)
+        if len(buckets[landscape]) == batch_size:
+            consume(buckets[landscape])
+            buckets[landscape] = []
+    for rest in buckets.values():
+        for iid in rest:  # leftovers run singly (different pad would skew)
+            consume([iid])
+    if progress:
+        print()
+    stats = {}
+    has_masks = any("segmentation" in r for r in results)
+    for iou_type in ("bbox", "segm") if has_masks else ("bbox",):
+        print(f"== {iou_type} ==")
+        E = COCOeval(dataset.coco, dataset.coco.loadRes(results), iou_type)
+        E.evaluate()
+        E.accumulate()
+        E.summarize()
+        stats[iou_type] = E.stats
+    return stats

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
-from tpuseg_torch.models.maskrcnn import MaskRCNNConfig
+from tpuseg_torch.engine.maskrcnn_engine import (MaskRCNNPredictor, _cfg_get,
+                                                 model_config_from_node)
 
 CATEGORIES = [
     "__background", "person", "bicycle", "car", "motorcycle", "airplane",
@@ -27,34 +27,6 @@ CATEGORIES = [
     "toaster", "sink", "refrigerator", "book", "clock", "vase", "scissors",
     "teddy bear", "hair drier", "toothbrush",
 ]
-
-
-def _cfg_get(node, path: str, default):
-    cur = node
-    for part in path.split("."):
-        try:
-            cur = cur[part]
-        except (KeyError, TypeError):
-            return default
-    return cur
-
-
-def model_config_from_node(node) -> MaskRCNNConfig:
-    """yacs-style tree -> MaskRCNNConfig (GeneralizedRCNN R-50/101-FPN)."""
-    conv_body = _cfg_get(node, "MODEL.BACKBONE.CONV_BODY", "R-50-FPN")
-    arch = _cfg_get(node, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN")
-    if (arch != "GeneralizedRCNN" or not conv_body.endswith("-FPN")
-            or not _cfg_get(node, "MODEL.MASK_ON", True)):
-        raise ValueError(f"{arch} / {conv_body}: only the FPN Mask R-CNN "
-                         "is ported so far")
-    return MaskRCNNConfig(
-        depth=101 if "101" in conv_body else 50,
-        rpn_pre_nms_top_n=int(_cfg_get(node, "MODEL.RPN.PRE_NMS_TOP_N_TEST", 1000)),
-        rpn_post_nms_top_n=int(_cfg_get(node, "MODEL.RPN.POST_NMS_TOP_N_TEST", 1000)),
-        fpn_post_nms_top_n=int(
-            _cfg_get(node, "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 1000)),
-        num_classes=int(_cfg_get(node, "MODEL.ROI_BOX_HEAD.NUM_CLASSES", 81)),
-    )
 
 
 class COCODemo:

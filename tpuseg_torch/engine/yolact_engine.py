@@ -1,4 +1,5 @@
-"""YOLACT predictor (port of ``tpuseg/engine/yolact_engine.py``).
+"""YOLACT predictor and evaluation engine (port of
+``tpuseg/engine/yolact_engine.py``, Yolact.jittor eval.py parity).
 
 Device side: ``yolact_preprocess`` (bilinear resize to the square input,
 normalisation), the model's forward in ``dtype``, predictions cast to f32,
@@ -7,9 +8,15 @@ normalisation), the model's forward in ``dtype``, predictions cast to f32,
 ``output_utils.postprocess``, the masks upsampled to the image with
 half-pixel bilinear interpolation (``F.interpolate``, which equals the
 JAX engine's ``cv2.resize(INTER_LINEAR)``), binarised at 0.5, the boxes
-scaled to pixels and truncated to integers.
+scaled to pixels and truncated to integers. :func:`evaluate_dataset` gives
+YOLACT's own mAP table over a COCO dataset (``tpuseg_torch/eval``), and
+with ``output_coco_json`` the two COCO result jsons and their COCOeval.
 """
 from __future__ import annotations
+
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -97,3 +104,148 @@ class YolactPredictor:
                         {k: v[j] for k, v in det.items()}, h, w,
                         score_threshold)
         return results
+
+
+def evaluate_dataset(predictor: YolactPredictor, dataset, max_images=None,
+                     score_threshold: float = 0.0, progress=True,
+                     output_coco_json: str | None = None) -> dict:
+    """Full-val mAP table (eval.py's mode without image arguments) ->
+    all_maps.
+
+    Images are decoded in the annotation frame by
+    :class:`NativeImageLoader` and stretched to the model's square input,
+    ``predictor.batch_size`` at a time, the next chunk decoding on one
+    thread while the device runs the current one. With
+    ``output_coco_json``, also dumps COCO-format results to
+    ``<path>_{bbox,mask}.json`` and runs the port's COCOeval on them
+    (eval.py --output_coco_json parity).
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpuseg_torch.data.native_loader import NativeImageLoader
+    from tpuseg_torch.eval.yolact_map import (calc_map, make_ap_data,
+                                              prep_metrics, print_maps)
+
+    cfg = predictor.cfg
+    ids = dataset.image_ids
+    if max_images:
+        ids = ids[:max_images]
+    bs = predictor.batch_size
+    ap_data = make_ap_data(cfg.num_classes - 1)
+    t_infer = 0.0
+    n_done = 0
+    coco_results = [] if output_coco_json is not None else None
+    label_map_inv = (
+        {v: k for k, v in dataset.label_map.items()}
+        if getattr(dataset, "label_map", None) else {})
+    loader = NativeImageLoader()
+    prefetcher = ThreadPoolExecutor(1)
+
+    def load_chunk(chunk):
+        paths = [dataset.image_path(iid) for iid in chunk]
+        batch, hw = loader.load_batch(paths, cfg.img_size, cfg.img_size)
+        metas = [(iid, int(hw[i, 0]), int(hw[i, 1]))
+                 for i, iid in enumerate(chunk)]
+        return batch, metas
+
+    chunks = [ids[s:s + bs] for s in range(0, len(ids), bs)]
+    # pipeline: the next chunk decodes on the loader pool while the device
+    # runs the current one
+    pending = prefetcher.submit(load_chunk, chunks[0]) if chunks else None
+    try:
+        for start in range(0, len(ids), bs):
+            chunk = ids[start:start + bs]
+            batch, metas = pending.result()
+            nxt = start // bs + 1
+            pending = (prefetcher.submit(load_chunk, chunks[nxt])
+                       if nxt < len(chunks) else None)
+            if len(chunk) < bs:
+                batch = np.pad(batch, ((0, bs - len(chunk)), (0, 0), (0, 0),
+                                       (0, 0)))
+            t0 = time.perf_counter()
+            dets = {k: v.cpu().numpy() if torch.is_tensor(v)
+                    else np.asarray(v)
+                    for k, v in predictor.run_batch(batch).items()}
+            t_infer += time.perf_counter() - t0
+            for bi, (iid, h, w) in enumerate(metas):
+                det_i = {k: v[bi] for k, v in dets.items()}
+                final = predictor.postprocess_image(det_i, h, w,
+                                                    score_threshold)
+                gt = dataset.load_target(iid)
+                prep_metrics(ap_data, final, gt)
+                if coco_results is not None:
+                    coco_results.extend(
+                        detections_to_coco_json(final, iid, label_map_inv))
+                n_done += 1
+            if progress:
+                print(f"\r{n_done}/{len(ids)} images "
+                      f"({n_done / max(t_infer, 1e-9):.1f} img/s device)",
+                      end="", flush=True)
+    finally:
+        # the prefetch pool must not leak a worker thread per
+        # evaluate_dataset call (one process may evaluate many checkpoints)
+        if pending is not None:
+            pending.cancel()
+        prefetcher.shutdown(wait=False)
+    if progress:
+        print()
+    all_maps = calc_map(ap_data, cfg.num_classes - 1)
+    print_maps(all_maps)
+    if coco_results is not None:
+        from tpuseg_torch.eval.cocoeval import COCOeval
+
+        # two jsons like the reference: the mask file must NOT carry bbox
+        # keys (loadRes' bbox branch would take precedence and bin segm
+        # detections by box area instead of mask area) and uses the
+        # maskiou-rescored score when present
+        bbox_res = [
+            {k: v for k, v in r.items()
+             if k not in ("segmentation", "mask_score")}
+            for r in coco_results
+        ]
+        mask_res = [
+            {**{k: v for k, v in r.items()
+                if k not in ("bbox", "mask_score")},
+             "score": r.get("mask_score", r["score"])}
+            for r in coco_results
+        ]
+        d = os.path.dirname(output_coco_json)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(f"{output_coco_json}_bbox.json", "w") as f:
+            json.dump(bbox_res, f)
+        with open(f"{output_coco_json}_mask.json", "w") as f:
+            json.dump(mask_res, f)
+        for iou_type, res in (("bbox", bbox_res), ("segm", mask_res)):
+            print(f"== COCOeval {iou_type} ==")
+            E = COCOeval(dataset.coco, dataset.coco.loadRes(res), iou_type)
+            E.evaluate()
+            E.accumulate()
+            E.summarize()
+    return all_maps
+
+
+def detections_to_coco_json(final: dict, image_id: int, label_map_inv: dict):
+    """One image's final dets -> COCO result dicts (bbox + segm).
+
+    The combined dicts carry a 'mask_score' side-key (YOLACT++ maskiou
+    rescoring) that the dump step splits into the reference's separate
+    bbox/mask jsons."""
+    from tpuseg_torch.eval import rle as rle_mod
+
+    out = []
+    for i in range(len(final["scores"])):
+        x1, y1, x2, y2 = final["boxes"][i]
+        cat = label_map_inv.get(int(final["classes"][i]) + 1,
+                                int(final["classes"][i]) + 1)
+        det = {
+            "image_id": int(image_id),
+            "category_id": int(cat),
+            "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+            "score": float(final["scores"][i]),
+            "segmentation": rle_mod.encode(final["masks"][i]),
+        }
+        if "mask_scores" in final:
+            det["mask_score"] = float(final["mask_scores"][i])
+        out.append(det)
+    return out
