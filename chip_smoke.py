@@ -87,6 +87,25 @@ Phases, one line each; any failure raises and exits non-zero:
      one's launches counted; timings of the reader, the decode, both
      evaluations and the training CLIs' s/it (the median interval after
      the first step's).
+  14. the rest of the detectron family at full width (R-50, 81 classes,
+     800x1344, synthetic upstream-keyed weights from a numpy seed; C4's
+     with upstream's duplicate of res5 under the mask head): Mask R-CNN C4,
+     Faster R-CNN FPN and RetinaNet through build_predictor_from_cfg on
+     their yamls at B = 1 and 2 (launches per forward, sane detections,
+     every NMS call of the path equal to the plain version on its inputs
+     bit for bit: C4's RPN at N = 6000, RetinaNet's class-aware NMS over
+     4693 candidates; the heads through kernels vs plain on one feature map
+     detection for detection, TF32 off); the class scores calibrated so
+     that the final NMS has real work; 3 do_train iterations at B = 2 each
+     (launches per step, C4's RPN NMS at N = 12 000, finite losses, frozen
+     stages still, the rest moved) and one step kernels vs plain (as phase
+     9); their timings (forward img/s at B = 1 and 2, the training step at
+     B = 2, K1 at the new shapes on the models' own inputs against its
+     plain version and its bound, the C4 pooler's forward and backward);
+     every yaml of configs/ through build_predictor_from_cfg and do_train
+     (random weights: a forward and a training step each, its launches);
+     after phase 13, test_net and train_net with the C4 and RetinaNet
+     yamls over its dataset.
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -130,6 +149,8 @@ from tpuseg_torch.eval import rle, yolact_map
 from tpuseg_torch.eval.coco import COCO
 from tpuseg_torch.eval.cocoeval import COCOeval
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.models import maskrcnn_c4 as C4
+from tpuseg_torch.models import retinanet as RN
 from tpuseg_torch.models import yolact as YM
 from tpuseg_torch.models import yolact_loss as YLOSS
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
@@ -717,10 +738,13 @@ def synthetic_images(seed: int):
             textured_image(rng, 1200, 800))
 
 
-def check_result(res: dict, h: int, w: int) -> int:
+def check_result(res: dict, h: int, w: int, masks: bool = True) -> int:
     n = len(res["scores"])
     assert res["boxes"].shape == (n, 4) and res["classes"].shape == (n,)
-    assert res["masks"].shape == (n, h, w) and res["masks"].dtype == np.uint8
+    assert ("masks" in res) == masks
+    if masks:
+        assert res["masks"].shape == (n, h, w)
+        assert res["masks"].dtype == np.uint8
     assert np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()
     assert ((res["scores"] > 0) & (res["scores"] <= 1)).all()
     assert (res["boxes"][:, 0::2] <= w - 1).all()
@@ -730,8 +754,10 @@ def check_result(res: dict, h: int, w: int) -> int:
 
 
 def compare_heads(got: dict, want: dict) -> str:
-    """Kernel path vs plain path on one pyramid: detection for detection."""
+    """Kernel path vs plain path on one pyramid: detection for detection
+    (the masks too where the model has a mask head)."""
     lines = []
+    fields = ("boxes", "scores") + (("masks",) if "masks" in want else ())
     for i in range(got["valid"].shape[0]):
         gv, wv = got["valid"][i], want["valid"][i]
         if int(gv.sum()) != int(wv.sum()):
@@ -743,13 +769,13 @@ def compare_heads(got: dict, want: dict) -> str:
                                    atol=1e-3, rtol=0)
         torch.testing.assert_close(got["scores"][i][gv], want["scores"][i][wv],
                                    atol=0, rtol=1e-5)
-        torch.testing.assert_close(got["masks"][i][gv], want["masks"][i][wv],
-                                   atol=1e-4, rtol=0)
+        if "masks" in want:
+            torch.testing.assert_close(got["masks"][i][gv],
+                                       want["masks"][i][wv], atol=1e-4, rtol=0)
         err = {k: float((got[k][i][gv] - want[k][i][wv]).abs().max())
-               for k in ("boxes", "scores", "masks")}
-        lines.append(f"image {i}: {int(gv.sum())} dets, max err boxes "
-                     f"{err['boxes']:.3g} scores {err['scores']:.3g} masks "
-                     f"{err['masks']:.3g}")
+               if int(gv.sum()) else 0.0 for k in fields}
+        lines.append(f"image {i}: {int(gv.sum())} dets, max err "
+                     + " ".join(f"{k} {v:.3g}" for k, v in err.items()))
     return "; ".join(lines)
 
 
@@ -888,13 +914,27 @@ def frozen_names(model) -> list:
     return sorted(set(names))
 
 
+def check_moved(model, before: dict, what: str = "") -> tuple:
+    """After training from the state ``before``: every frozen tensor still
+    and every trainable parameter moved -> (frozen names, trainable
+    names)."""
+    after = model.state_dict()
+    frozen = frozen_names(model)
+    moved_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    still = [n for n in trainable if torch.equal(after[n], before[n])]
+    if moved_frozen or still or set(trainable) & set(frozen):
+        raise AssertionError(f"{what}: frozen that moved: {moved_frozen}; "
+                             f"trainable that did not: {still}")
+    return frozen, trainable
+
+
 def step_grads(model, images, image_hw, targets, seed: int) -> tuple:
     """Losses and parameter gradients of one training forward + backward,
     the samplers drawing from a generator seeded with ``seed``."""
     model.zero_grad(set_to_none=True)
     gen = torch.Generator(device=images.device).manual_seed(seed)
-    losses = M.forward_train_losses(model, images, image_hw, targets,
-                                    generator=gen)
+    losses = TL.train_losses(model, images, image_hw, targets, gen)
     losses["total"].backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
@@ -973,14 +1013,7 @@ def phase_train(dev, tmp: Path) -> dict:
     bad = [h for h in history if not all(np.isfinite(v) for v in h.values())]
     if bad or len(history) != TRAIN_STEPS:
         raise AssertionError(f"losses not finite: {bad}")
-    after = model.state_dict()
-    frozen = frozen_names(model)
-    moved_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
-    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
-    still = [n for n in trainable if torch.equal(after[n], before[n])]
-    if moved_frozen or still or set(trainable) & set(frozen):
-        raise AssertionError(f"frozen that moved: {moved_frozen}; trainable "
-                             f"that did not: {still}")
+    frozen, trainable = check_moved(model, before)
     fresh = M.build_model(cfg)
     ckpt = torch.load(tmp / f"model_{TRAIN_STEPS:07d}.pth", weights_only=True)
     fresh.load_state_dict(ckpt["model"], strict=True)
@@ -1625,25 +1658,30 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
             log(f"[12 timing] {name}: kernel {t[0]:.4f} ms{alone}, plain "
                 f"{t[1]:.4f} ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
 
-    # the training step (forward, backward, SGD) at B = 2 with TF32
-    # convolutions as do_train runs them: kernels, plain once, kernels
-    model = train["model"]
+    times["train step B=2 800x1344"] = time_train_step(
+        train["model"], train["batch"], "[12 timing] train step", card)
+    return times
+
+
+def time_train_step(model, batch, label: str, card: str) -> tuple:
+    """The training step (forward, backward, SGD) at B = 2 with TF32
+    convolutions as do_train runs them: kernels, plain once, kernels ->
+    (kernels ms, plain ms)."""
     opt = make_optimizer(model, 0.0025)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator(device=batch[0].device).manual_seed(SEED)
 
     def step():
-        TL.train_step(model, opt, 0.0025 / 3, *train["batch"], gen)
+        TL.train_step(model, opt, 0.0025 / 3, *batch, gen)
 
     k1 = cuda_time_ms(step, iters=5, warmup=2)
     with kernels.force_plain():
         p = cuda_time_ms(step, iters=1, warmup=0)
     k2 = cuda_time_ms(step, iters=5, warmup=0)
     k = (k1 + k2) / 2
-    times["train step B=2 800x1344"] = (k, p)
-    log(f"[12 timing] train step B=2 800x1344: kernels {k:.3f} ms "
+    log(f"{label} B=2 {CANVAS[0]}x{CANVAS[1]}: kernels {k:.3f} ms "
         f"({1e3 / k:.3f} it/s; two runs of 5: {k1:.3f}, {k2:.3f}), plain "
         f"{p:.3f} ms ({1e3 / p:.3f} it/s, one step) [{card}]")
-    return times
+    return k, p
 
 
 def dcn_touched_cells(sy, sx, h: int, w: int) -> int:
@@ -2321,6 +2359,537 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
     return {"counts": clis, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the detectron family
+# ---------------------------------------------------------------------------
+
+FAMILY = {"c4": "e2e_mask_rcnn_R_50_C4_1x.yaml",
+          "faster_rcnn": "e2e_faster_rcnn_R_50_FPN_1x.yaml",
+          "retinanet": "retinanet_R_50_FPN_1x.yaml"}
+FAMILY_CLI_STEPS = 3
+# RetinaNet's class logits: at least this share of each level's (anchor,
+# class) pairs passes the 0.05 gate, so every level fills its top 1000 and
+# the final NMS sees thousands of candidates (the prior-prob bias alone
+# passes none)
+RETINA_PASS = 0.05
+LOGIT_GATE = float(np.log(0.05 / 0.95))  # the logit of score 0.05
+# class-box candidates an image into C4's final NMS (at most one a proposal
+# once the class scores are peaked)
+C4_MIN_CANDIDATES = 300
+
+
+def per(counts: dict, times: int = 1) -> dict:
+    """A launch count of every kernel: ``times`` x ``counts`` (0 if not
+    named)."""
+    return {k: times * counts.get(k, 0) for k in kernels.LAUNCHES}
+
+
+def expected_launches(cfg) -> tuple:
+    """The kernel launches of one forward and of one training step of a
+    detectron model, as its code makes them (the phases confirm them):
+    FPN 6 NMS (5 RPN levels, the final NMS) and a RoIAlign per pooler, its
+    backward in training; C4 its RPN's NMS and the final one (the pooler
+    has no kernel); RetinaNet its final NMS, nothing in training."""
+    poolers = 1 + getattr(cfg, "mask_on", False)
+    fwd, step = {
+        "fpn": ({"nms": 6, "roi_align": poolers},
+                {"nms": 5, "roi_align": poolers, "roi_align_bwd": poolers}),
+        "c4": ({"nms": 2}, {"nms": 1}),
+        "retinanet": ({"nms": 1}, {}),
+    }[ME.variant_of(cfg)]
+    return per(fwd), per(step)
+
+
+def family_node(name: str, weight: str = ""):
+    """The model's yaml as the CLIs read it, with MODEL.WEIGHT ``weight``."""
+    from tpuseg_torch.engine.config import ConfigNode
+
+    node = ConfigNode({"MODEL": {"WEIGHT": ""},
+                       "INPUT": {"MIN_SIZE_TEST": 800}})
+    node.merge_from_file(str(Path(__file__).resolve().parent / "configs"
+                             / FAMILY.get(name, name)))
+    node.merge_from_list(["MODEL.WEIGHT", weight])
+    return node
+
+
+def with_shared_res5(sd: dict) -> dict:
+    """A C4 state dict as upstream saves it with SHARE_BOX_FEATURE_EXTRACTOR:
+    res5 under the mask head too."""
+    box = "roi_heads.box.feature_extractor."
+    mask = "roi_heads.mask.feature_extractor."
+    return {**sd, **{mask + k[len(box):]: v.clone() for k, v in sd.items()
+                     if k.startswith(box)}}
+
+
+def calibrate_family(name: str, model, images, image_hw) -> str:
+    """Class scores that give the final NMS real work: C4's cls_score
+    weights scaled up until each image sends C4_MIN_CANDIDATES class-box
+    candidates to it; RetinaNet's class-logit bias set so that RETINA_PASS
+    of the (anchor, class) pairs of the level with the fewest high logits
+    pass the 0.05 gate."""
+    mod = ME.model_module(model.cfg)
+    with torch.inference_mode():
+        feats = model.backbone(images)
+        if name == "retinanet":
+            head = model.rpn.head
+            head.cls_logits.bias.zero_()
+            logits, _ = head(feats)
+            q = min(float(lg.reshape(-1).float().kthvalue(
+                int((1 - RETINA_PASS) * lg.numel())).values)
+                for lg in logits)
+            head.cls_logits.bias.fill_(LOGIT_GATE - q)
+            n = mod.forward_heads(model, feats, image_hw, CANVAS)[
+                "candidate_valid"].sum(1)
+            return (f"class-logit bias {LOGIT_GATE - q:.4g}: "
+                    f"{n.tolist()} valid NMS inputs an image")
+        w = model.roi_heads.box.predictor.cls_score.weight
+        base = w.clone()
+        least = min(C4_MIN_CANDIDATES, model.cfg.rpn_post_nms_top_n)
+        for m in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
+            w.copy_(base * m)
+            n = mod.forward_heads(model, feats, image_hw, CANVAS)[
+                "candidate_valid"].sum(1)
+            if int(n.min()) >= least:
+                return (f"cls_score weights x {m}: {n.tolist()} class-box "
+                        "candidates an image")
+    raise AssertionError(f"{name}: no cls_score scale gives {least} "
+                         f"candidates ({n.tolist()})")
+
+
+@contextlib.contextmanager
+def recording_nms():
+    """Each outermost call of the NMS entry points (nms_mask_batch,
+    batched_nms_mask, batched_nms_mask_batch) while the block runs: (name,
+    args, kwargs, keep). The models look them up in ops.nms at call time
+    and pass ``valid`` by keyword."""
+    names = ("nms_mask_batch", "batched_nms_mask", "batched_nms_mask_batch")
+    orig = {n: getattr(nms_ops, n) for n in names}
+    calls, depth = [], [0]
+
+    def wrap(name):
+        def run(*args, **kwargs):
+            depth[0] += 1
+            try:
+                keep = orig[name](*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                calls.append((name, args, kwargs, keep))
+            return keep
+        return run
+
+    for n in names:
+        setattr(nms_ops, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(nms_ops, n, orig[n])
+
+
+def nms_call_label(name: str, args: tuple, kwargs: dict) -> str:
+    thr = args[2] if name == "nms_mask_batch" else args[3]
+    b, n = args[1].shape
+    return f"{name} B={b} N={n} thr={thr}"
+
+
+def check_nms_calls(calls: list) -> str:
+    """Each recorded call against the plain version on its own inputs: the
+    keep masks equal bit for bit. -> 'label: kept/valid, ...' for each
+    call shape, in the order of first call."""
+    kept = {}
+    for name, args, kwargs, keep in calls:
+        with kernels.force_plain():
+            want = getattr(nms_ops, name)(*args, **kwargs)
+        label = nms_call_label(name, args, kwargs)
+        if not torch.equal(keep, want):
+            raise AssertionError(f"{label}: {int((keep != want).sum())} keep "
+                                 "bits differ from the plain version")
+        kept.setdefault(label, []).append(
+            f"{int(keep.sum())}/{int(kwargs['valid'].sum())}")
+    return "; ".join(f"{k}: {', '.join(v)}" for k, v in kept.items())
+
+
+def family_state_dict(name: str, cfg, dev, train: bool) -> tuple:
+    """Phase 14's synthetic upstream-keyed weights of a FAMILY model ->
+    (state dict, how they were set). For inference, calibrated on the
+    landscape images (calibrate_family; RetinaNet's class logits first
+    given N(0, 1/fan) weights, so that the head's features spread them);
+    for training, the stem's FrozenBN variance matched to the pixels (as
+    phase 9) and RetinaNet's head at upstream's init: weights N(0, 0.01^2),
+    biases 0, the class logits' bias at the prior (with the scheme's 3e-4
+    class-logit weights, P6's and P7's gradients are too small to move
+    their biases in f32)."""
+    model = ME.build_model(cfg)
+    sd = synthetic_state_dict(model, SEED + (27 if train else 21))
+    if train:
+        sd["backbone.body.stem.bn1.running_var"] *= PIXEL_VAR
+        if name == "retinanet":
+            g = torch.Generator().manual_seed(SEED + 31)
+            for k, v in sd.items():
+                if k.startswith("rpn.head."):
+                    v.copy_(torch.randn(v.shape, generator=g) * 0.01
+                            if k.endswith("weight") else torch.zeros_like(v))
+            sd["rpn.head.cls_logits.bias"].fill_(RN.prior_bias(cfg))
+        return sd, "training init"
+    if name == "retinanet":
+        w = sd["rpn.head.cls_logits.weight"]
+        sd["rpn.head.cls_logits.weight"] = torch.from_numpy((
+            np.random.default_rng(SEED + 23).standard_normal(w.shape)
+            * np.prod(w.shape[1:]) ** -0.5).astype(np.float32))
+    model.load_state_dict(sd, strict=True)
+    model = model.to(dev)
+    landscape, _ = synthetic_images(SEED)
+    images, image_hw = canvas_batch(SimpleNamespace(device=dev), landscape)
+    calib = calibrate_family(name, model, images, image_hw)
+    return {k: v.cpu() for k, v in model.state_dict().items()}, calib
+
+
+def family_inference(name: str, dev, tmp: Path) -> dict:
+    """build_predictor_from_cfg on the yaml with synthetic upstream-keyed
+    weights (C4's with the duplicate res5): launches per forward at B = 1
+    and 2, sane detections, every NMS call of the path equal to its plain
+    version, the heads through kernels vs plain on one feature map."""
+    _, cfg = ME.model_config_from_node(family_node(name))
+    mod = ME.model_module(cfg)
+    sd, calib = family_state_dict(name, cfg, dev, train=False)
+    landscape, _ = synthetic_images(SEED)
+    if name == "c4":
+        sd = with_shared_res5(sd)
+    ckpt = tmp / f"synthetic_{FAMILY[name][:-5]}.pth"
+    torch.save({"model": sd}, ckpt)
+    pred = ME.build_predictor_from_cfg(family_node(name, str(ckpt)),
+                                       device=dev)
+
+    counts, dets = {}, []
+    with recording_nms() as calls:
+        for b in (1, 2):
+            kernels.reset_launch_counts()
+            res = pred.run_on_bgr_images(landscape[:b])
+            torch.cuda.synchronize()
+            counts[b] = kernels.launch_counts()
+            dets += [check_result(r, *img.shape[:2], masks=name == "c4")
+                     for r, img in zip(res, landscape)]
+    want = expected_launches(cfg)[0]
+    if counts[1] != want or counts[2] != want:
+        raise AssertionError(f"{name}: launches {counts} per forward at "
+                             f"B = 1 and 2; want {want}")
+    if min(dets) == 0:
+        raise AssertionError(f"{name}: no detections: {dets}")
+    log(f"[14 {name}] build_predictor_from_cfg({FAMILY[name]}), "
+        f"{calib}; launches {want} per forward at B = 1 and 2; detections "
+        f"{dets}; its NMS calls (kept/valid) equal the plain version bit for "
+        f"bit: {check_nms_calls(calls)}")
+
+    images, image_hw = canvas_batch(pred, landscape)
+    with exact_convs(), torch.inference_mode():
+        feats = pred.model.backbone(images)
+        got = mod.forward_heads(pred.model, feats, image_hw, CANVAS)
+        with kernels.force_plain():
+            ref = mod.forward_heads(pred.model, feats, image_hw, CANVAS)
+        torch.cuda.synchronize()
+    log(f"[14 {name}] heads kernels vs plain (TF32 off): "
+        f"{compare_heads(got, ref)}; valid final-NMS inputs "
+        f"{got['candidate_valid'].sum(1).tolist()} of "
+        f"{got['candidate_valid'].shape[1]}")
+    return {"pred": pred, "ckpt": str(ckpt), "counts": counts[2],
+            "calls": calls}
+
+
+def family_train(name: str, dev, tmp: Path) -> dict:
+    """do_train for TRAIN_STEPS iterations at B = 2 on the 800x1344
+    canvas: launches per step, finite losses, the
+    frozen stages still and the rest moved, the checkpoint loads; every NMS
+    call of the path equal to its plain version; one step kernels vs plain
+    (TF32 off) as phase 9."""
+    _, cfg = ME.model_config_from_node(family_node(name))
+    model = ME.build_model(cfg)
+    sd, _ = family_state_dict(name, cfg, dev, train=True)
+    model.load_state_dict(sd, strict=True)
+    init = tmp / f"{name}_train_init.pth"
+    torch.save({"model": sd}, init)
+    data = SyntheticDataset(SEED + 7)
+    model = model.to(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kernels.reset_launch_counts()
+    with recording_nms() as calls, quiet():
+        model, it, history = TL.do_train(
+            data, cfg, model=model, max_steps=TRAIN_STEPS, ims_per_batch=2,
+            checkpoint_period=TRAIN_STEPS, log_every=TRAIN_STEPS,
+            output_dir=str(tmp / name), device=dev)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    step_want = expected_launches(cfg)[1]
+    want = {k: TRAIN_STEPS * v for k, v in step_want.items()}
+    if it != TRAIN_STEPS or counts != want:
+        raise AssertionError(f"{name}: {it} iterations launched {counts}; "
+                             f"want {want}")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"{name}: losses not finite: {history}")
+    frozen, trainable = check_moved(model, before, name)
+    fresh = ME.build_model(cfg)
+    fresh.load_state_dict(torch.load(
+        tmp / name / f"model_{TRAIN_STEPS:07d}.pth",
+        weights_only=True)["model"], strict=True)
+    log(f"[14 {name}] do_train {it} iterations at B = 2 on "
+        f"{CANVAS[0]}x{CANVAS[1]}: "
+        f"launches {counts} ({step_want} per step); total loss "
+        f"{[round(h['total'], 4) for h in history]} "
+        f"({', '.join(k for k in history[0] if k != 'total')}); "
+        f"{len(frozen)} frozen tensors still, {len(trainable)} trainable "
+        f"moved; the checkpoint loads strict; NMS calls (kept/valid) equal "
+        f"to the plain version: {check_nms_calls(calls) or 'none'}")
+
+    rng = np.random.default_rng(SEED + 8)
+    batch = TL.batch_to_device([TL.build_train_example(data, i, rng=rng)
+                                for i in data.image_ids[:2]], dev)
+    with exact_convs():
+        kernels.reset_launch_counts()
+        got = step_grads(model, *batch, seed=SEED + 9)
+        path_counts = kernels.launch_counts()
+        with kernels.force_plain():
+            ref = step_grads(model, *batch, seed=SEED + 9)
+        torch.cuda.synchronize()
+    if path_counts != step_want:
+        raise AssertionError(f"{name}: kernel-path step launched "
+                             f"{path_counts}")
+    log(f"[14 {name}] one step, kernels vs plain (TF32 off): "
+        f"{compare_steps(got, ref)}")
+    return {"model": model, "batch": batch, "counts": counts, "init": init,
+            "calls": calls}
+
+
+def time_nms_call(call, what: str, card: str, iters: int = 10) -> tuple:
+    """A recorded NMS call timed against its plain version and its bound,
+    the kernel launch alone too -> (its label, the (ms, plain, bound, by,
+    None, alone) of phase 12's NMS rows)."""
+    from tpuseg_torch.kernels import nms as nms_kernel
+
+    name, args, kwargs, _ = call
+    fn_real = getattr(nms_ops, name)
+
+    def fn():
+        return fn_real(*args, **kwargs)
+
+    with torch.inference_mode():
+        k, p = time_pair(fn, iters)
+        kargs = kernel_args(nms_kernel, "nms_keep", fn)
+        alone = cuda_time_ms(lambda: nms_kernel.nms_keep(*kargs), iters)
+    if name == "nms_mask_batch":
+        boxes, scores, thr = args[:3]
+        classes = None
+    else:
+        boxes, scores, classes, thr = args[:4]
+    valid = kwargs["valid"]
+    t = (k, p) + nms_bound(boxes, scores, valid, classes, thr) + (None, alone)
+    label = f"{what}: {nms_call_label(name, args, kwargs)}"
+    log(f"[14 timing] nms {label} ({int(valid.sum())} valid): kernel "
+        f"{k:.4f} ms (the kernel launch alone {alone:.4f} ms), plain "
+        f"{p:.4f} ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
+    return label, t
+
+
+def time_family(name: str, inf: dict, tr: dict, card: str) -> dict:
+    """Forward img/s at B = 1 and 2 and the training step at B = 2, kernels
+    and plain, as phase 12."""
+    pred = inf["pred"]
+    mod = ME.model_module(pred.cfg)
+    landscape, _ = synthetic_images(SEED)
+    times = {}
+    with torch.inference_mode():
+        for b in (1, 2):
+            images, image_hw = canvas_batch(pred, landscape[:b])
+            k, p = time_pair(lambda: mod.forward_inference(
+                pred.model, images, image_hw), iters=5)
+            times[f"{name} forward B={b}"] = (k, p)
+            log(f"[14 timing] {name} forward B={b} {CANVAS[0]}x{CANVAS[1]}: "
+                f"kernels "
+                f"{1e3 * b / k:.2f} img/s ({k:.3f} ms), plain "
+                f"{1e3 * b / p:.2f} img/s ({p:.3f} ms) [{card}]")
+    times[f"{name} train step B=2"] = time_train_step(
+        tr["model"], tr["batch"], f"[14 timing] {name} train step", card)
+    return times
+
+
+def time_c4_pooler(tr: dict, card: str) -> dict:
+    """The C4 pooler (the adaptive RoIAlign in its separable form, plain
+    torch, no kernel: no bound) on the training model's C4 map at B = 2:
+    forward at the training sample (512 rois an image) and the inference
+    proposals (1000), and forward + backward at the training sample."""
+    model, (images, image_hw, _) = tr["model"], tr["batch"]
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(SEED + 29)
+    with torch.no_grad():
+        c4 = model.backbone(images)
+    times = {}
+    for r in (512, 1000):
+        boxes = random_boxes(g, (2, r), images.device)
+        with torch.no_grad():
+            times[f"c4 pooler forward R={r}"] = cuda_time_ms(
+                lambda: C4.pooled_rois(cfg, c4, boxes), iters=5)
+    boxes = random_boxes(g, (2, 512), images.device)
+    feats = c4.detach().requires_grad_()
+    grad = torch.randn(1024, c4.shape[1], 14, 14, device=images.device)
+
+    def fwd_bwd():
+        C4.pooled_rois(cfg, feats, boxes).backward(grad)
+        feats.grad = None
+
+    times["c4 pooler forward+backward R=512"] = cuda_time_ms(fwd_bwd, iters=5)
+    fwd = times["c4 pooler forward R=512"]
+    both = times["c4 pooler forward+backward R=512"]
+    log(f"[14 timing] C4 pooler (adaptive RoIAlign 14x14 on "
+        f"{tuple(c4.shape)}, separable form, f32, no kernel): forward "
+        f"{fwd:.3f} ms at 2 x 512 rois, "
+        f"{times['c4 pooler forward R=1000']:.3f} ms at 2 x 1000; forward + "
+        f"backward {both:.3f} ms at 2 x 512 (backward {both - fwd:.3f} ms) "
+        f"[{card}]")
+    return times
+
+
+def phase_family(dev, tmp: Path, card: str) -> dict:
+    """Phase 14: C4, Faster R-CNN FPN and RetinaNet, inference and
+    training, then their timings and K1's at the new shapes."""
+    out = {"counts": {}, "times": {}, "ckpts": {}, "inits": {}, "nms": {}}
+
+    def first(calls, name, b=2):
+        return next(c for c in calls if c[0] == name and c[1][1].shape[0] == b)
+
+    for name in FAMILY:
+        inf = family_inference(name, dev, tmp)
+        tr = family_train(name, dev, tmp)
+        out["counts"][f"{name}_inference"] = inf["counts"]
+        out["counts"][f"{name}_training"] = tr["counts"]
+        out["ckpts"][name], out["inits"][name] = inf["ckpt"], str(tr["init"])
+        out["times"].update(time_family(name, inf, tr, card))
+        if name == "c4":  # the RPN's NMS of the B = 2 forward, and in training
+            label, t = time_nms_call(first(inf["calls"], "nms_mask_batch"),
+                                     "C4 inference RPN", card)
+            out["nms"][label] = t
+            label, t = time_nms_call(first(tr["calls"], "nms_mask_batch"),
+                                     "C4 training RPN", card, iters=5)
+            out["nms"][label] = t
+            out["times"].update(time_c4_pooler(tr, card))
+        if name == "retinanet":
+            label, t = time_nms_call(
+                first(inf["calls"], "batched_nms_mask_batch"),
+                "RetinaNet class-aware", card)
+            out["nms"][label] = t
+        del inf, tr
+        torch.cuda.empty_cache()
+    phase_all_yamls(dev)
+    return out
+
+
+def compact(counts: dict) -> str:
+    """'2 nms + 1 roi_align' for the kernels launched."""
+    return " + ".join(f"{n} {k}" for k, n in counts.items() if n) or "none"
+
+
+def phase_all_yamls(dev) -> None:
+    """Every yaml of configs/ through build_predictor_from_cfg (random
+    weights from the predictor's seed) and do_train on the 800x1344
+    canvas: one B = 1 forward and one B = 2 training step each, with its
+    model's launches, sane detections and finite losses."""
+    landscape, _ = synthetic_images(SEED)
+    data = SyntheticDataset(SEED + 7, n_images=2)
+    lines = []
+    for path in sorted((Path(__file__).resolve().parent / "configs")
+                       .glob("*.yaml")):
+        node = family_node(path.name)
+        variant, cfg = ME.model_config_from_node(node)
+        fwd_want, step_want = expected_launches(cfg)
+        pred = ME.build_predictor_from_cfg(node, device=dev)
+        kernels.reset_launch_counts()
+        res = pred.run_on_bgr_image(landscape[0])
+        torch.cuda.synchronize()
+        fwd = kernels.launch_counts()
+        n = check_result(res, *landscape[0].shape[:2],
+                         masks=getattr(cfg, "mask_on", False))
+        kernels.reset_launch_counts()
+        with quiet():
+            _, it, history = TL.do_train(
+                data, cfg, model=pred.model, max_steps=1, ims_per_batch=2,
+                checkpoint_period=2, log_every=2, device=dev)
+            torch.cuda.synchronize()
+        step = kernels.launch_counts()
+        if fwd != fwd_want or step != step_want or it != 1 or not all(
+                np.isfinite(v) for v in history[0].values()):
+            raise AssertionError(
+                f"{path.name}: launches {fwd} a forward and {step} a step "
+                f"(want {fwd_want}, {step_want}); losses {history}")
+        lines.append(f"{path.name} ({variant}, R-{cfg.depth}"
+                     f"{'' if getattr(cfg, 'mask_on', False) else ', boxes'}"
+                     f"): {n} dets, {compact(fwd)} / {compact(step)}, loss "
+                     f"{history[0]['total']:.4g}")
+        del pred
+    torch.cuda.empty_cache()
+    log(f"[14 yamls] every yaml, random weights (a forward at B = 1 / a "
+        f"do_train step at B = 2, {CANVAS[0]}x{CANVAS[1]}; detections, "
+        f"launches, total loss): {'; '.join(lines)}")
+
+
+def phase_family_clis(dev, data: dict, family: dict, tmp: Path,
+                      card: str) -> dict:
+    """test_net and train_net (FAMILY_CLI_STEPS steps) through main() with
+    the C4 and RetinaNet yamls over phase 13's dataset on disk: launches,
+    finite stats and losses."""
+    from tpuseg_torch.tools import test_net, train_net
+
+    counts = {}
+    for name in ("c4", "retinanet"):
+        yaml = str(Path(__file__).resolve().parent / "configs"
+                   / FAMILY[name])
+        fwd_want, step_want = expected_launches(
+            ME.model_config_from_node(family_node(name))[1])
+        kernels.reset_launch_counts()
+        with quiet():
+            t0 = time.perf_counter()
+            stats = test_net.main([
+                "--config-file", yaml, "--images", data["img_dir"],
+                "--annotations", data["ann"], "--max_images", "8",
+                "--batch_size", "4", "MODEL.WEIGHT", family["ckpts"][name]])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        # a landscape and a portrait batch
+        want = {k: 2 * v for k, v in fwd_want.items()}
+        kinds = {"bbox", "segm"} if name == "c4" else {"bbox"}
+        if got != want or stats.keys() != kinds or not all(
+                np.isfinite(s).all() for s in stats.values()):
+            raise AssertionError(f"test_net {name}: launched {got}, want "
+                                 f"{want}; stats {stats}")
+        counts[f"cli_{name}_test_net"] = got
+        log(f"[14 cli] test_net --config-file {FAMILY[name]} "
+            f"--max_images 8 --batch_size 4: launches {got} (2 forwards), "
+            + ", ".join(f"{k} AP {v[0]:.4f}" for k, v in stats.items())
+            + f", {wall:.1f} s [{card}]")
+        kernels.reset_launch_counts()
+        with quiet():
+            t0 = time.perf_counter()
+            history = train_net.main([
+                "--config-file", yaml, "--max_steps", str(FAMILY_CLI_STEPS),
+                "SOLVER.IMS_PER_BATCH", "2", "SOLVER.BASE_LR", "0.0025",
+                "SOLVER.CHECKPOINT_PERIOD", str(FAMILY_CLI_STEPS),
+                "DATASETS.IMAGES", data["img_dir"], "DATASETS.ANNOTATIONS",
+                data["ann"], "OUTPUT_DIR", str(tmp / f"train_net_{name}"),
+                "MODEL.WEIGHT", family["inits"][name]])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        want = {k: FAMILY_CLI_STEPS * v for k, v in step_want.items()}
+        if got != want or len(history) != FAMILY_CLI_STEPS or not all(
+                np.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"train_net {name}: launched {got}, want "
+                                 f"{want}; losses {history}")
+        counts[f"cli_{name}_train_net"] = got
+        log(f"[14 cli] train_net --config-file {FAMILY[name]} "
+            f"--max_steps {FAMILY_CLI_STEPS}: launches {got}; total loss "
+            f"{[round(h['total'], 4) for h in history]}; {wall:.1f} s "
+            f"[{card}]")
+    return counts
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -2333,6 +2902,13 @@ def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     if len(t) > 5:  # the launch alone, without the dispatch around it
         entry["kernel_alone_ms"] = t[5]
     return entry
+
+
+def shape_entry(t) -> dict:
+    """A kernel's numbers at one more shape: (ms, plain, bound, by, library,
+    launch alone)."""
+    return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+            "library_ms": t[4], "kernel_alone_ms": t[5]}
 
 
 def ptxas_summary(log_text: str) -> list:
@@ -2395,35 +2971,48 @@ def main() -> int:
     times.update(time_yolact(dev, yolact, card))
     times.update(time_yolact_train(dev, yolact_train, card))
     del pred, train, yolact, yolact_train
-    with tempfile.TemporaryDirectory() as tmp:
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as family_tmp, \
+            tempfile.TemporaryDirectory() as tmp:
+        family = phase_family(dev, Path(family_tmp), card)
+        times.update(family["times"])
         data = phase_coco_data(dev, Path(tmp), card)
         coco_mrcnn = phase_coco_maskrcnn(dev, data, Path(tmp), card)
         coco_yolact = phase_coco_yolact(dev, data, Path(tmp), card)
         clis = phase_clis(dev, data, coco_mrcnn, coco_yolact, Path(tmp),
                           card)
+        family["counts"].update(phase_family_clis(dev, data, family,
+                                                  Path(tmp), card))
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
-        steps, one YOLACT++ forward, three YOLACT++ training steps; then
-        phase 13's: evaluate_coco over 16 images, evaluate_dataset over
-        16, and each CLI's run."""
+        steps, one YOLACT++ forward, three YOLACT++ training steps; phase
+        13's: evaluate_coco over 16 images, evaluate_dataset over 16, and
+        each CLI's run; phase 14's: one B = 2 forward and three training
+        steps of C4, Faster R-CNN FPN and RetinaNet, and their CLIs'
+        runs."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
                 "yolact_training": yolact_train_counts[name],
                 "coco_evaluate_coco": coco_mrcnn["counts"][name],
                 "coco_evaluate_dataset": coco_yolact["counts"][name],
-                **{f"cli_{c}": n[name] for c, n in clis["counts"].items()}}
+                **{f"cli_{c}": n[name] for c, n in clis["counts"].items()},
+                **{path: n[name] for path, n in family["counts"].items()}}
 
-    log(f"[14 total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 13 (the kernels' build included)")
+    log(f"[15 total] {time.perf_counter() - start:.1f} s from the start of "
+        "main to the end of phase 14 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
-        kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
-                     "tpuseg/ops/pallas/nms_pl.py:138", launches("nms"),
-                     nms_res["max_abs_err"],
-                     times["nms B=2 class-aware N=2048"]),
+        {**kernel_entry("nms", "tpuseg_torch/csrc/nms.cu",
+                        "tpuseg/ops/pallas/nms_pl.py:138", launches("nms"),
+                        nms_res["max_abs_err"],
+                        times["nms B=2 class-aware N=2048"]),
+         # the same kernel at the detectron family's shapes (phase 14), on
+         # the inputs the models gave it; each equal to the plain version
+         "shapes": {label: shape_entry(t)
+                    for label, t in family["nms"].items()}},
         kernel_entry("roi_align", "tpuseg_torch/csrc/roi_align.cu",
                      "tpuseg/ops/pallas/roi_align_pl.py:576",
                      launches("roi_align"), roi_res["max_abs_err"],

@@ -84,6 +84,56 @@ def test_nms_kernel_writes_keep_in_the_boxes_order(monkeypatch):
     assert torch.equal(nms_ops.nms_mask_batch(boxes, scores, 0.6, valid), want)
 
 
+def _clustered_boxes(rng, b: int, n: int, extent=(800.0, 1344.0)):
+    """[B, N, 4] boxes in 60 clusters over an 800x1344 canvas, sides 8 to
+    512 px: heavy overlap, as a detector's candidates have."""
+    centre = rng.uniform(0, 1, (b, 60, 2)) * np.array(extent[::-1])
+    k = rng.integers(0, 60, (b, n))
+    c = np.take_along_axis(centre, k[..., None], 1) + rng.normal(
+        0, 12, (b, n, 2))
+    size = np.exp(rng.uniform(np.log(8), np.log(512), (b, n, 1)))
+    wh = size * np.exp(rng.normal(0, 0.5, (b, n, 2)) * [1, 0])
+    return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+
+
+def test_nms_kernel_at_the_c4_rpn_shape():
+    """C4's inference RPN: B = 2, N = 6000, thr 0.7, +1 extents."""
+    dev = _device()
+    rng = np.random.default_rng(6000)
+    boxes = torch.from_numpy(_clustered_boxes(rng, 2, 6000)).to(dev)
+    scores = torch.from_numpy(rng.uniform(size=(2, 6000)).astype(
+        np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=(2, 6000)) < 0.95).to(dev)
+    before = kernels.launch_counts()["nms"]
+    got = nms_ops.nms_mask_batch(boxes, scores, 0.7, valid, to_remove=1.0)
+    assert kernels.launch_counts()["nms"] == before + 1
+    with kernels.force_plain():
+        want = nms_ops.nms_mask_batch(boxes, scores, 0.7, valid,
+                                      to_remove=1.0)
+    assert torch.equal(got, want) and 0 < int(got.sum()) < int(valid.sum())
+
+
+def test_nms_kernel_at_the_retinanet_class_aware_shape():
+    """RetinaNet's final NMS: B = 2, N = 4 x 1000 + 693 candidates, 80
+    classes through the batch-wide coordinate offset, thr 0.4, +1
+    extents."""
+    dev = _device()
+    rng = np.random.default_rng(4693)
+    boxes = torch.from_numpy(_clustered_boxes(rng, 2, 4693)).to(dev)
+    scores = torch.from_numpy(rng.uniform(0.05, 1.0, (2, 4693)).astype(
+        np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=(2, 4693)) < 0.9).to(dev)
+    classes = torch.from_numpy(rng.integers(0, 80, (2, 4693))).to(dev)
+    before = kernels.launch_counts()["nms"]
+    got = nms_ops.batched_nms_mask_batch(boxes, scores, classes, 0.4, valid,
+                                         to_remove=1.0)
+    assert kernels.launch_counts()["nms"] == before + 1
+    with kernels.force_plain():
+        want = nms_ops.batched_nms_mask_batch(boxes, scores, classes, 0.4,
+                                              valid, to_remove=1.0)
+    assert torch.equal(got, want) and 0 < int(got.sum()) < int(valid.sum())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [7, 14])
 def test_roi_align_kernel_matches_plain(dtype, p):

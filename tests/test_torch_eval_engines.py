@@ -222,15 +222,20 @@ def test_config_node_equals_tpuseg(yaml_file):
     with pytest.raises(AttributeError, match="frozen"):
         clone.MODEL.WEIGHT = "x"
     assert clone.copy({"MODEL": {"WEIGHT": "y"}}).MODEL.WEIGHT == "y"
-    if "C4" in yaml_file or "retinanet" in yaml_file:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ME.model_config_from_node(got)
-    elif "faster" in yaml_file:
-        with pytest.raises(ValueError, match="MASK_ON"):
-            ME.model_config_from_node(got)
-    else:
-        mcfg = ME.model_config_from_node(got)
-        assert mcfg.depth == (101 if "R_101" in yaml_file else 50)
+    # every yaml dispatches to tpuseg's variant, with its config's values
+    # in every field the two configs share
+    variant, mcfg = ME.model_config_from_node(got)
+    j_variant, j_mcfg = J_ME.model_config_from_node(want)
+    assert variant == j_variant == ("retinanet" if "retinanet" in yaml_file
+                                    else "c4" if "C4" in yaml_file else "fpn")
+    assert mcfg.depth == (101 if "R_101" in yaml_file else 50)
+    shared = [f.name for f in dataclasses.fields(mcfg)
+              if hasattr(j_mcfg, f.name)]
+    assert len(shared) == len(dataclasses.fields(mcfg))
+    for name in shared:
+        assert getattr(mcfg, name) == getattr(j_mcfg, name), name
+    if variant != "retinanet":
+        assert mcfg.mask_on == ("faster" not in yaml_file)
 
 
 # --- the YOLACT CLIs on the CPU (Mask R-CNN's: test_torch_maskrcnn_cli.py) ---

@@ -68,6 +68,31 @@ def test_smoke_ab_reads_the_launch_alone_and_the_split_of_each_kernel():
         "dcn_sample_bwd float32 B=8 69x69x128 s1, d feats only": 0.14}
 
 
+def test_smoke_ab_reads_phase_14_timings():
+    """The detectron family's forwards, steps and K1 at its shapes; the C4
+    pooler's line, which times no kernel, is not read."""
+    card = "[NVIDIA H100 80GB HBM3, 700.00 W]"
+    log = "\n".join([
+        "[14 timing] c4 forward B=2 800x1344: kernels 31.19 img/s (64.116 "
+        f"ms), plain 15.55 img/s (128.591 ms) {card}",
+        "[14 timing] retinanet train step B=2 800x1344: kernels 46.589 ms "
+        "(21.464 it/s; two runs of 5: 45.790, 47.388), plain 46.112 ms "
+        f"(21.686 it/s, one step) {card}",
+        "[14 timing] nms C4 inference RPN: nms_mask_batch B=2 N=6000 "
+        "thr=0.7 (12000 valid): kernel 0.3643 ms (the kernel launch alone "
+        "0.2666 ms), plain 33.7498 ms, bound 0.004554 ms by operations "
+        f"{card}",
+        "[14 timing] C4 pooler (adaptive RoIAlign 14x14 on (2, 1024, 50, "
+        "84), separable form, f32, no kernel): forward 10.382 ms at 2 x 512 "
+        f"rois {card}"])
+    rpn = ("nms C4 inference RPN: nms_mask_batch B=2 N=6000 thr=0.7 (12000 "
+           "valid)")
+    assert smoke_ab.timings(log) == {
+        "c4 forward B=2 800x1344": 64.116,
+        "retinanet train step B=2 800x1344": 46.589,
+        rpn: 0.3643, f"{rpn} (launch alone)": 0.2666}
+
+
 def test_bwd_merge_counts_on_hand_built_rois():
     """The RoIAlign backward's reductions, counted on one 40 x 40 level at
     stride 4, C = 256 (64 float4 vectors a cell): a roi of one cell (all

@@ -40,6 +40,8 @@ SLICE_MODULES = [
     "tpuseg_torch.data.prefetch", "tpuseg_torch.engine.config",
     "tpuseg_torch.tools.test_net", "tpuseg_torch.tools.train_net",
     "tpuseg_torch.tools.yolact_eval", "tpuseg_torch.tools.yolact_train",
+    "tpuseg_torch.models.maskrcnn_c4", "tpuseg_torch.models.retinanet",
+    "tpuseg_torch.ops.losses",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -136,16 +138,26 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
+    """Every variant of the predictor (the detectron family: "fpn", "c4",
+    "retinanet") and do_train for each model's config run on the card
+    unless the caller asks for the CPU."""
     from tpuseg_torch.engine.detectron_train_loop import do_train
-    from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
+    from tpuseg_torch.engine.maskrcnn_engine import (VARIANTS,
+                                                     MaskRCNNPredictor)
     from tpuseg_torch.engine.predictor import COCODemo
     from tpuseg_torch.engine.yolact_train_loop import train
 
     for fn in (MaskRCNNPredictor.__init__, COCODemo.__init__, do_train,
                train):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert sorted(VARIANTS) == ["c4", "fpn", "retinanet"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MaskRCNNPredictor(M.MaskRCNNConfig(num_classes=NC))
+        for variant, (_, config) in VARIANTS.items():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                MaskRCNNPredictor(variant=variant)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                do_train(None, config(num_classes=NC))
         with pytest.raises(RuntimeError, match="CUDA"):
             train(None, None)

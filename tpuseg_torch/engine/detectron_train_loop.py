@@ -1,10 +1,13 @@
-"""Mask R-CNN training loop (port of
-``tpuseg/engine/detectron_train_loop.py``, detectron's do_train).
+"""The detectron family's training loop (port of
+``tpuseg/engine/detectron_train_loop.py``, detectron's do_train): Mask
+R-CNN and Faster R-CNN over FPN or C4, and RetinaNet, by the model's config.
 
 Iteration-based to SOLVER.MAX_ITER with WarmupMultiStepLR, periodic
 ``model_{iter:07d}.pth`` checkpoints and MetricLogger-style console lines.
 The host builds each batch on one canvas orientation with padded targets,
-including each gt's mask cropped to its box for the mask loss.
+including each gt's mask cropped to its box for the mask loss (112x112
+crops, pooled to the FPN's 28x28 targets or C4's 14x14; boxes-only models
+do not read them).
 
 The dataset is any object with the interface of the JAX package's
 ``CocoDetectionDataset``: ``image_ids``, ``coco.imgs[id]`` with ``width``
@@ -20,7 +23,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from tpuseg_torch.engine.maskrcnn_engine import preprocess_image_bgr
+from tpuseg_torch.engine.maskrcnn_engine import (build_model, model_module,
+                                                 preprocess_image_bgr)
 from tpuseg_torch.engine.trainer import (make_optimizer, save_checkpoint,
                                          set_lr, warmup_multistep_lr)
 from tpuseg_torch.models import maskrcnn as M
@@ -110,13 +114,21 @@ def build_train_example(dataset, iid, min_size=800, max_size=1333,
         "boxes": boxes, "classes": classes, "mask_crops": crops}
 
 
+def train_losses(model, images: torch.Tensor, image_hw: torch.Tensor,
+                 targets: dict, generator=None) -> dict:
+    """The training forward of ``model``'s variant: the two-stage models
+    draw their samplers' uniforms from ``generator``; RetinaNet samples
+    nothing."""
+    return model_module(model.cfg).forward_train_losses(
+        model, images, image_hw, targets, generator=generator)
+
+
 def train_step(model, optimizer, lr: float, images: torch.Tensor,
                image_hw: torch.Tensor, targets: dict, generator=None) -> dict:
     """One SGD step at ``lr`` on one batch -> the detached losses (on the
     device: reading them is the caller's synchronisation)."""
     set_lr(optimizer, lr)
-    losses = M.forward_train_losses(model, images, image_hw, targets,
-                                    generator=generator)
+    losses = train_losses(model, images, image_hw, targets, generator)
     optimizer.zero_grad(set_to_none=True)
     losses["total"].backward()
     optimizer.step()
@@ -134,19 +146,22 @@ def batch_to_device(examples, dev) -> tuple:
             targets)
 
 
-def do_train(dataset, cfg: M.MaskRCNNConfig | None = None, model=None,
+def do_train(dataset, cfg=None, model=None,
              base_lr=0.0025, steps=(120000, 160000), max_iter=180000,
              ims_per_batch=2, checkpoint_period=2500,
              output_dir="weights/detectron", log_every=20, max_steps=None,
              seed=3, device="cuda", min_size=800, max_size=1333):
-    """Train Mask R-CNN R-50-FPN on ``device`` (the card unless the caller
+    """Train a detectron model on ``device`` (the card unless the caller
     asks for ``"cpu"``) -> (model, iterations run, per-iteration loss dicts).
 
-    ``model`` defaults to random weights from seed 0 (``build_model``).
-    The solver is upstream's e2e_mask_rcnn_R_50_FPN_1x at 2 images per
-    batch: SGD momentum 0.9, weight decay 1e-4, biases lr x2 without decay,
-    WarmupMultiStepLR. Images are shuffled per pass and flipped by a numpy
-    generator seeded with ``seed``; the samplers draw from a
+    ``model`` defaults to random weights from seed 0 (``build_model``) of
+    ``cfg``'s variant (a MaskRCNNConfig, MaskRCNNC4Config or
+    RetinaNetConfig; Mask R-CNN R-50-FPN's by default). The solver is
+    upstream's e2e_mask_rcnn_R_50_FPN_1x at 2 images per batch, for every
+    variant: SGD momentum 0.9, weight decay 1e-4, biases lr x2 without
+    decay, WarmupMultiStepLR; the frozen stem and layer1 are left out.
+    Images are shuffled per pass and flipped by a numpy generator seeded
+    with ``seed``; the samplers draw from a
     ``torch.Generator`` on ``device`` seeded with ``seed``. Batches are
     bucketed by orientation so each shares one canvas; buckets persist
     across passes (a dataset with fewer images of one orientation than a
@@ -156,8 +171,8 @@ def do_train(dataset, cfg: M.MaskRCNNConfig | None = None, model=None,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
     if model is None:
-        model = M.build_model(cfg or M.MaskRCNNConfig(),
-                              torch.Generator().manual_seed(0))
+        model = build_model(cfg or M.MaskRCNNConfig(),
+                            torch.Generator().manual_seed(0))
     model = model.to(dev).train()
     lr_fn = warmup_multistep_lr(base_lr=base_lr, steps=steps)
     opt = make_optimizer(model, base_lr)

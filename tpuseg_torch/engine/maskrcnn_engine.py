@@ -1,13 +1,16 @@
-"""Mask R-CNN predictor and COCO evaluation (port of
-``tpuseg/engine/maskrcnn_engine.py``, FPN variant; detectron.jittor
-COCODemo / tools/test_net.py parity).
+"""The detectron family's predictor and COCO evaluation (port of
+``tpuseg/engine/maskrcnn_engine.py``; detectron.jittor COCODemo /
+tools/test_net.py parity): Mask R-CNN and Faster R-CNN R-50/101-FPN
+(``variant="fpn"``) and R-50/101-C4 (``"c4"``), and RetinaNet R-50-FPN
+(``"retinanet"``).
 
 Host side: shortest-edge-800 resize (PIL bilinear, only when the size
 changes), BGR mean subtraction, placement on one of two static canvases
 (landscape 800x1344, portrait 1344x800). Device side: the model's forward
-on ``device``. Post: the 28x28 masks pasted into image coordinates with
-upstream Masker semantics. :func:`evaluate_coco` scores a dataset with the
-port's COCOeval (``tpuseg_torch/eval``).
+on ``device``. Post: the masks (28x28 FPN, 14x14 C4) pasted into image
+coordinates with upstream Masker semantics; boxes-only models give no
+``masks``. :func:`evaluate_coco` scores a dataset with the port's COCOeval
+(``tpuseg_torch/eval``).
 """
 from __future__ import annotations
 
@@ -16,8 +19,34 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.models import maskrcnn_c4 as C4
+from tpuseg_torch.models import retinanet as RN
 from tpuseg_torch.ops.preprocess import (DETECTRON_PIXEL_MEAN_BGR,
                                          detectron_target_size)
+
+# variant -> (model module, its config class); each module has
+# build_model, forward_inference and forward_train_losses
+VARIANTS = {"fpn": (M, M.MaskRCNNConfig), "c4": (C4, C4.MaskRCNNC4Config),
+            "retinanet": (RN, RN.RetinaNetConfig)}
+
+
+def variant_of(cfg) -> str:
+    """The variant whose config class ``cfg`` is."""
+    for variant, (_, config) in VARIANTS.items():
+        if isinstance(cfg, config):
+            return variant
+    raise TypeError(f"not a detectron model config: {type(cfg).__name__}")
+
+
+def model_module(cfg):
+    """The module of ``cfg``'s variant: maskrcnn, maskrcnn_c4 or
+    retinanet."""
+    return VARIANTS[variant_of(cfg)][0]
+
+
+def build_model(cfg, generator: torch.Generator | None = None):
+    """The model of ``cfg``'s variant (its module's ``build_model``)."""
+    return model_module(cfg).build_model(cfg, generator)
 
 
 def preprocess_image_bgr(img_bgr: np.ndarray, min_size=800, max_size=1333):
@@ -85,29 +114,33 @@ def paste_masks(masks28: torch.Tensor, boxes: torch.Tensor, im_h: int,
 class MaskRCNNPredictor:
     """COCODemo-equivalent programmatic API on ``device``.
 
-    Weights: an upstream ``.pth`` (``weights``), a ready ``model``, or random
-    weights from a ``torch.Generator`` seeded with ``seed``.
+    ``variant`` "fpn" (Mask R-CNN or, with ``mask_on=False``, Faster R-CNN
+    R-50/101-FPN), "c4" (the same over R-50/101-C4) or "retinanet"; a
+    ``cfg`` or a ``model`` passed in decides it instead. Weights: an
+    upstream ``.pth`` (``weights``), a ready ``model``, or random weights
+    from a ``torch.Generator`` seeded with ``seed``.
     """
 
-    def __init__(self, cfg: M.MaskRCNNConfig | None = None,
-                 weights: str | None = None, model: M.MaskRCNN | None = None,
+    def __init__(self, cfg=None, weights: str | None = None, model=None,
                  confidence_threshold: float = 0.5, min_image_size: int = 800,
-                 max_image_size: int = 1333, device="cuda", seed: int = 0):
+                 max_image_size: int = 1333, device="cuda", seed: int = 0,
+                 variant: str = "fpn"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
         if model is None:
-            cfg = cfg or M.MaskRCNNConfig()
+            cfg = cfg or VARIANTS[variant][1]()
             if weights:
                 from tpuseg_torch.weights.detectron_map import (
                     load_detectron_weights)
 
-                model = load_detectron_weights(weights, M.build_model(cfg))
+                model = load_detectron_weights(weights, build_model(cfg))
             else:
-                model = M.build_model(
-                    cfg, torch.Generator().manual_seed(seed))
+                model = build_model(cfg, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
         self.cfg = self.model.cfg
+        self.variant = variant_of(self.cfg)
+        self._forward = model_module(self.cfg).forward_inference
         self.confidence_threshold = confidence_threshold
         self.min_image_size = min_image_size
         self.max_image_size = max_image_size
@@ -119,7 +152,7 @@ class MaskRCNNPredictor:
     def run_on_bgr_images(self, imgs_bgr: list) -> list:
         """Batched inference; the images must share one canvas orientation.
         Returns, per image, numpy ``boxes``, ``scores``, ``classes`` (0-based)
-        and ``masks`` [n, h, w] uint8."""
+        and, where the model has a mask head, ``masks`` [n, h, w] uint8."""
         canvases, hws, scales = [], [], []
         for img in imgs_bgr:
             canvas, hw, scale = preprocess_image_bgr(
@@ -133,7 +166,7 @@ class MaskRCNNPredictor:
             np.stack(canvases).transpose(0, 3, 1, 2).copy()).to(self.device)
         image_hw = torch.tensor(hws, dtype=torch.int64, device=self.device)
         with torch.inference_mode():
-            out = M.forward_inference(self.model, images, image_hw)
+            out = self._forward(self.model, images, image_hw)
             results = []
             for i, img in enumerate(imgs_bgr):
                 h, w = img.shape[:2]
@@ -143,8 +176,10 @@ class MaskRCNNPredictor:
                 boxes[:, 0::2] = (boxes[:, 0::2] / sx).clamp(0, w - 1)
                 boxes[:, 1::2] = (boxes[:, 1::2] / sy).clamp(0, h - 1)
                 res = {"boxes": boxes, "scores": out["scores"][i][valid],
-                       "classes": out["classes"][i][valid],
-                       "masks": paste_masks(out["masks"][i][valid], boxes, h, w)}
+                       "classes": out["classes"][i][valid]}
+                if "masks" in out:  # none for Faster R-CNN and RetinaNet
+                    res["masks"] = paste_masks(out["masks"][i][valid], boxes,
+                                               h, w)
                 results.append({k: v.cpu().numpy() for k, v in res.items()})
         return results
 
@@ -170,41 +205,57 @@ def _cfg_get(node, path: str, default):
     return cur
 
 
-def model_config_from_node(node) -> M.MaskRCNNConfig:
+def model_config_from_node(node) -> tuple:
     """yacs-style tree (a ConfigNode after ``merge_from_file``) ->
-    MaskRCNNConfig for GeneralizedRCNN R-50/101-FPN, with the RPN top-N
-    constants and NUM_CLASSES of the yaml. C4 and RetinaNet are not ported
-    yet (ROADMAP.md §1 item 5); MODEL.MASK_ON False (Faster R-CNN) is
-    rejected."""
-    conv_body = _cfg_get(node, "MODEL.BACKBONE.CONV_BODY", "R-50-FPN")
-    arch = _cfg_get(node, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN")
-    if arch != "GeneralizedRCNN" or not conv_body.endswith("-FPN"):
-        raise NotImplementedError(
-            f"{arch} / {conv_body}: only the FPN Mask R-CNN is ported; C4 "
-            "and RetinaNet are ROADMAP.md §1 item 5")
-    if not _cfg_get(node, "MODEL.MASK_ON", True):
-        raise ValueError("MODEL.MASK_ON False (Faster R-CNN): only the FPN "
-                         "Mask R-CNN is ported")
-
+    (variant, model config), as tpuseg's: MODEL.META_ARCHITECTURE
+    "RetinaNet" is RetinaNet, a CONV_BODY ending in "-C4" the C4 models,
+    else the FPN ones; the depth from the CONV_BODY, MODEL.MASK_ON (False:
+    Faster R-CNN), NUM_CLASSES, the RPN top-N constants and C4's pooler
+    sampling ratio, or RetinaNet's PRE_NMS_TOP_N, INFERENCE_TH and NMS_TH
+    from the yaml."""
     def get(path, default):
-        return int(_cfg_get(node, path, default))
+        return _cfg_get(node, path, default)
 
-    return M.MaskRCNNConfig(
-        depth=101 if "101" in conv_body else 50,
-        rpn_pre_nms_top_n=get("MODEL.RPN.PRE_NMS_TOP_N_TEST", 1000),
-        rpn_post_nms_top_n=get("MODEL.RPN.POST_NMS_TOP_N_TEST", 1000),
-        fpn_post_nms_top_n=get("MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 1000),
-        fpn_post_nms_top_n_train=get("MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN",
-                                     2000),
-        num_classes=get("MODEL.ROI_BOX_HEAD.NUM_CLASSES", 81))
+    conv_body = get("MODEL.BACKBONE.CONV_BODY", "R-50-FPN")
+    num_classes = int(get("MODEL.ROI_BOX_HEAD.NUM_CLASSES", 81))
+    mask_on = bool(get("MODEL.MASK_ON", True))
+    depth = 101 if "101" in conv_body else 50
+    if get("MODEL.META_ARCHITECTURE", "GeneralizedRCNN") == "RetinaNet":
+        return "retinanet", RN.RetinaNetConfig(
+            depth=depth,
+            num_classes=int(get("MODEL.RETINANET.NUM_CLASSES", num_classes)),
+            pre_nms_top_n=int(get("MODEL.RETINANET.PRE_NMS_TOP_N", 1000)),
+            score_thresh=float(get("MODEL.RETINANET.INFERENCE_TH", 0.05)),
+            nms_thresh=float(get("MODEL.RETINANET.NMS_TH", 0.4)))
+    if conv_body.endswith("-C4"):
+        return "c4", C4.MaskRCNNC4Config(
+            depth=depth,
+            rpn_pre_nms_top_n=int(get("MODEL.RPN.PRE_NMS_TOP_N_TEST", 6000)),
+            rpn_post_nms_top_n=int(get("MODEL.RPN.POST_NMS_TOP_N_TEST", 1000)),
+            rpn_pre_nms_top_n_train=int(
+                get("MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 12000)),
+            rpn_post_nms_top_n_train=int(
+                get("MODEL.RPN.POST_NMS_TOP_N_TRAIN", 2000)),
+            pooler_sampling_ratio=int(
+                get("MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO", 0)),
+            num_classes=num_classes, mask_on=mask_on)
+    return "fpn", M.MaskRCNNConfig(
+        depth=depth,
+        rpn_pre_nms_top_n=int(get("MODEL.RPN.PRE_NMS_TOP_N_TEST", 1000)),
+        rpn_post_nms_top_n=int(get("MODEL.RPN.POST_NMS_TOP_N_TEST", 1000)),
+        fpn_post_nms_top_n=int(get("MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 1000)),
+        fpn_post_nms_top_n_train=int(
+            get("MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 2000)),
+        num_classes=num_classes, mask_on=mask_on)
 
 
 def build_predictor_from_cfg(node, **kw) -> MaskRCNNPredictor:
-    """ConfigNode -> MaskRCNNPredictor with its model config, MODEL.WEIGHT
-    and INPUT.{MIN,MAX}_SIZE_TEST; ``kw`` goes to the predictor
-    (``device``, ``confidence_threshold``)."""
+    """ConfigNode -> MaskRCNNPredictor for its variant and model config,
+    with MODEL.WEIGHT and INPUT.{MIN,MAX}_SIZE_TEST; ``kw`` goes to the
+    predictor (``device``, ``confidence_threshold``)."""
+    _, cfg = model_config_from_node(node)
     return MaskRCNNPredictor(
-        cfg=model_config_from_node(node),
+        cfg=cfg,
         weights=_cfg_get(node, "MODEL.WEIGHT", "") or None,
         min_image_size=int(_cfg_get(node, "INPUT.MIN_SIZE_TEST", 800)),
         max_image_size=int(_cfg_get(node, "INPUT.MAX_SIZE_TEST", 1333)),

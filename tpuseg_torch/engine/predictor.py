@@ -1,5 +1,6 @@
 """COCODemo, the reference's predictor facade (port of
-``tpuseg/engine/predictor.py``; the R-50/101-FPN variant)::
+``tpuseg/engine/predictor.py``): every yaml in ``configs/``, Mask R-CNN and
+Faster R-CNN over FPN or C4 and RetinaNet::
 
     from tpuseg_torch.engine.predictor import COCODemo
     coco_demo = COCODemo(cfg, confidence_threshold=0.5, device="cuda")
@@ -33,11 +34,12 @@ class COCODemo:
     def __init__(self, cfg=None, min_image_size: int | None = None,
                  confidence_threshold: float = 0.7, weights: str | None = None,
                  device="cuda"):
-        """``cfg``: None (R-50-FPN defaults) or a ConfigNode, whose
+        """``cfg``: None (Mask R-CNN R-50-FPN defaults) or a ConfigNode,
+        which picks the model (see ``model_config_from_node``) and whose
         MODEL.WEIGHT and INPUT sizes are honoured unless overridden."""
         model_cfg, max_size = None, 1333
         if cfg is not None:
-            model_cfg = model_config_from_node(cfg)
+            _, model_cfg = model_config_from_node(cfg)
             weights = weights or _cfg_get(cfg, "MODEL.WEIGHT", "") or None
             if min_image_size is None:
                 min_image_size = int(_cfg_get(cfg, "INPUT.MIN_SIZE_TEST", 800))
@@ -56,11 +58,12 @@ class COCODemo:
         return self.predictor.select_top_predictions(predictions)
 
     def run_on_opencv_image(self, image_bgr: np.ndarray) -> np.ndarray:
-        """BGR image -> BGR image with boxes, masks and labels drawn."""
+        """BGR image -> BGR image with boxes, labels and (where the model
+        has a mask head) masks drawn."""
         from tpuseg_torch.data.image_io import draw_detections
 
         preds = self.select_top_predictions(self.compute_prediction(image_bgr))
         labels = [f"{CATEGORIES[int(c) + 1]}: {s:.2f}"
                   for c, s in zip(preds["classes"], preds["scores"])]
-        return draw_detections(image_bgr, preds["boxes"], preds["masks"],
-                               labels)
+        return draw_detections(image_bgr, preds["boxes"],
+                               preds.get("masks", ()), labels)

@@ -1,10 +1,11 @@
-"""Mask R-CNN R-50-FPN inference and training forward (port of
-``tpuseg/models/maskrcnn.py``).
+"""Mask R-CNN and Faster R-CNN R-50/101-FPN inference and training forward
+(port of ``tpuseg/models/maskrcnn.py``).
 
 ResNet-50 FrozenBN body -> FPN (P2..P6) -> RPN (per-level top-1000, NMS
 0.7, top-1000 over levels) -> 7x7 RoIAlign box head (2 FC -> 81-way scores
 and class-specific boxes; class-aware NMS 0.5, <= 100 detections) -> 14x14
 RoIAlign mask head (4 conv + deconv -> the detected class's 28x28 mask).
+``mask_on=False`` is Faster R-CNN: no mask head, boxes only, no mask loss.
 
 The padded contract of the JAX package is kept: nothing is filtered, only
 ranked and masked, so every output has a fixed shape ([B, 100] plus
@@ -59,6 +60,9 @@ class MaskRCNNConfig:
     detections_per_img: int = 100
     box_reg_weights: tuple = (10.0, 10.0, 5.0, 5.0)
     pre_final_nms_topk: int = 2048  # static cap on class-box candidates
+    # mask head; mask_on=False is the Faster R-CNN configuration
+    # (MODEL.MASK_ON in the e2e_faster_rcnn_*.yaml family)
+    mask_on: bool = True
     mask_resolution: int = 14
     mask_out: int = 28
     fpn_channels: int = 256
@@ -193,31 +197,40 @@ class MaskFeatureExtractor(nn.Module):
 
 
 class MaskPredictor(nn.Module):
-    def __init__(self, channels: int, num_classes: int):
+    """Upstream ``MaskRCNNC4Predictor``: a stride-2 deconv from
+    ``in_channels`` (256 after the FPN mask head's convs, 2048 after C4's
+    res5) to ``channels``, then a 1x1 conv to the class logits."""
+
+    def __init__(self, in_channels: int, channels: int, num_classes: int):
         super().__init__()
-        self.conv5_mask = nn.ConvTranspose2d(channels, channels, 2, stride=2)
+        self.conv5_mask = nn.ConvTranspose2d(in_channels, channels, 2,
+                                             stride=2)
         self.mask_fcn_logits = nn.Conv2d(channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor, class_sel: torch.Tensor):
+        """[N, in, R, R] -> [N, 2R, 2R] logits of class ``class_sel[n]``
+        only: the 1x1 conv's row for that class, as the JAX heads compute it
+        (the same values as slicing the full [N, K, 2R, 2R] output)."""
+        x = F.relu(self.conv5_mask(x))
+        logits = self.mask_fcn_logits
+        wsel = logits.weight[class_sel, :, 0, 0]  # [N, C]
+        return (torch.einsum("nchw,nc->nhw", x, wsel)
+                + logits.bias[class_sel][:, None, None])
 
 
 class MaskHead(nn.Module):
     def __init__(self, channels: int, num_classes: int):
         super().__init__()
         self.feature_extractor = MaskFeatureExtractor(channels)
-        self.predictor = MaskPredictor(channels, num_classes)
+        self.predictor = MaskPredictor(channels, channels, num_classes)
 
     def forward(self, pooled: torch.Tensor, class_sel: torch.Tensor):
         """[N, C, 14, 14] -> [N, 28, 28] logits of class ``class_sel[n]``
-        only: the 1x1 predictor's row for that class, as the JAX
-        ``mask_head(class_sel=...)`` computes (the same values as slicing
-        the full [N, K, 28, 28] output)."""
+        (the JAX ``mask_head(class_sel=...)``)."""
         x = pooled
         for i in range(1, 5):
             x = F.relu(getattr(self.feature_extractor, f"mask_fcn{i}")(x))
-        x = F.relu(self.predictor.conv5_mask(x))
-        logits = self.predictor.mask_fcn_logits
-        wsel = logits.weight[class_sel, :, 0, 0]  # [N, C]
-        return (torch.einsum("nchw,nc->nhw", x, wsel)
-                + logits.bias[class_sel][:, None, None])
+        return self.predictor(x, class_sel)
 
 
 class ROIHeads(nn.Module):
@@ -225,7 +238,8 @@ class ROIHeads(nn.Module):
         super().__init__()
         self.box = BoxHead(cfg.fpn_channels, cfg.pooler_resolution,
                            cfg.num_classes)
-        self.mask = MaskHead(cfg.fpn_channels, cfg.num_classes)
+        if cfg.mask_on:
+            self.mask = MaskHead(cfg.fpn_channels, cfg.num_classes)
 
 
 class MaskRCNN(nn.Module):
@@ -422,6 +436,8 @@ def forward_heads(model: MaskRCNN, pyramid: list, image_hw: torch.Tensor,
         "proposal_valid": p_valid,
         "candidate_valid": sel_valid,  # inputs of the final NMS
     }
+    if not cfg.mask_on:  # Faster R-CNN: boxes only
+        return out
 
     # ---- mask head on the detections
     d = cfg.detections_per_img
@@ -468,7 +484,8 @@ def forward_train_losses(model: MaskRCNN, images: torch.Tensor,
     ``{"rpn": [(pos, neg)] * B, "roi": [(pos, neg)] * B}`` with vectors of
     the number of anchors and of proposals + G, else from ``generator`` (on
     the images' device; None = its default generator), RPN then RoI, per
-    image positives then negatives.
+    image positives then negatives. ``mask_crops`` is not read when
+    ``mask_on`` is False (Faster R-CNN: four losses and ``total``).
 
     The RPN outputs are detached before proposal generation, which runs
     without autograd (upstream passes them ``.detach()``-ed); proposals use
@@ -529,6 +546,9 @@ def forward_train_losses(model: MaskRCNN, images: torch.Tensor,
     flat = {k: v.reshape((b * s,) + v.shape[2:]) for k, v in sample.items()}
     losses.update(ML.box_head_loss(cls_logits.float(), box_deltas.float(),
                                    flat, loss_cfg))
+    if not cfg.mask_on:  # Faster R-CNN: no mask loss
+        losses["total"] = sum(losses.values())
+        return losses
 
     m = int(loss_cfg.roi_batch_per_image * loss_cfg.roi_pos_fraction)
     mask_boxes = sample["boxes"][:, :m]

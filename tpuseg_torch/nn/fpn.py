@@ -2,8 +2,10 @@
 
 :class:`FPN`, detectron's: 1x1 lateral (``fpn_inner{i}``) and 3x3 output
 (``fpn_layer{i}``) convs, nearest top-down upsampling to the lateral's
-size, and P6 as a stride-2 1x1 max-pool of P5 (LastLevelMaxPool). Outputs
-P2..P6.
+size, and P6 as a stride-2 1x1 max-pool of P5 (LastLevelMaxPool): outputs
+P2..P6. RetinaNet's (``first=2``, laterals over C3..C5 named
+``fpn_inner2..4``) takes :class:`LastLevelP6P7` as its ``top_blocks``:
+outputs P3..P7.
 
 :class:`YolactFPN`, YOLACT's (``yolact.py::FPN``): laterals over C3..C5,
 bilinear top-down upsampling, ReLU after the 3x3 pred convs only, two
@@ -16,16 +18,40 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class FPN(nn.Module):
-    def __init__(self, in_channels=(256, 512, 1024, 2048), out_channels=256):
+class LastLevelP6P7(nn.Module):
+    """RetinaNet's top block (upstream ``LastLevelP6P7`` on C5): P6 a
+    stride-2 3x3 conv of C5, P7 one of relu(P6)."""
+
+    def __init__(self, in_channels: int = 2048, out_channels: int = 256):
         super().__init__()
-        for i, c in enumerate(in_channels, start=1):
+        self.p6 = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
+        self.p7 = nn.Conv2d(out_channels, out_channels, 3, stride=2,
+                            padding=1)
+
+    def forward(self, c5: torch.Tensor) -> list:
+        p6 = self.p6(c5)
+        return [p6, self.p7(F.relu(p6))]
+
+
+class FPN(nn.Module):
+    """Laterals ``fpn_inner{first..}`` over the last ``len(in_channels)``
+    body outputs; after the outputs, P6 by max-pooling the last one, or
+    what ``top_blocks`` makes of the last body output."""
+
+    def __init__(self, in_channels=(256, 512, 1024, 2048), out_channels=256,
+                 first: int = 1, top_blocks: nn.Module | None = None):
+        super().__init__()
+        self.first = first
+        self.num_inputs = len(in_channels)
+        for i, c in enumerate(in_channels, start=first):
             self.add_module(f"fpn_inner{i}", nn.Conv2d(c, out_channels, 1))
             self.add_module(f"fpn_layer{i}",
                             nn.Conv2d(out_channels, out_channels, 3, padding=1))
+        self.top_blocks = top_blocks
 
     def forward(self, feats: list) -> list:
-        inner = [getattr(self, f"fpn_inner{i + 1}")(f)
+        feats = feats[-self.num_inputs:]
+        inner = [getattr(self, f"fpn_inner{i + self.first}")(f)
                  for i, f in enumerate(feats)]
         last = inner[-1]
         tds = [last]
@@ -33,9 +59,11 @@ class FPN(nn.Module):
             last = lat + F.interpolate(last, size=lat.shape[-2:],
                                        mode="nearest")
             tds.insert(0, last)
-        out = [getattr(self, f"fpn_layer{i + 1}")(t) for i, t in enumerate(tds)]
-        out.append(F.max_pool2d(out[-1], 1, 2))
-        return out
+        out = [getattr(self, f"fpn_layer{i + self.first}")(t)
+               for i, t in enumerate(tds)]
+        if self.top_blocks is None:
+            return out + [F.max_pool2d(out[-1], 1, 2)]
+        return out + self.top_blocks(feats[-1])
 
 
 class YolactFPN(nn.Module):
@@ -76,7 +104,8 @@ class YolactFPN(nn.Module):
 
 
 class Backbone(nn.Module):
-    """``backbone.body`` (ResNet) + ``backbone.fpn``: images -> [P2..P6]."""
+    """``backbone.body`` (ResNet) + ``backbone.fpn``: images -> the
+    pyramid ([P2..P6], or RetinaNet's [P3..P7])."""
 
     def __init__(self, body: nn.Module, fpn: FPN):
         super().__init__()

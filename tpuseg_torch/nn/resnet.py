@@ -71,36 +71,63 @@ class ResNet(nn.Module):
     parameters get ``requires_grad=False``, so no gradient reaches them, as
     the JAX ``stop_gradient`` after each frozen stage does
     (``tpuseg/nn/resnet.py:103,128``). The FrozenBN tensors are buffers and
-    never train.
+    never train. ``num_stages=3`` is the C4 body (stem and layer1-3, the
+    last output at stride 16 with 1024 channels); its layer4 is the box
+    head's :class:`ResNetHead`.
     """
 
-    def __init__(self, depth: int = 50, width: int = 64, freeze_at: int = 2):
+    def __init__(self, depth: int = 50, width: int = 64, freeze_at: int = 2,
+                 num_stages: int = 4):
         super().__init__()
         self.freeze_at = freeze_at
+        self.num_stages = num_stages
         self.stem = Stem(width)
         cin = width
-        for si, nblocks in enumerate(STAGE_BLOCKS[depth]):
-            mid = width * 2 ** si
-            cout = mid * 4
-            stride = 1 if si == 0 else 2
-            blocks = [Bottleneck(cin if bi == 0 else cout, mid, cout,
-                                 stride if bi == 0 else 1)
-                      for bi in range(nblocks)]
-            self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
-            cin = cout
-        self.out_channels = tuple(width * 2 ** si * 4 for si in range(4))
+        for si, nblocks in enumerate(STAGE_BLOCKS[depth][:num_stages]):
+            self.add_module(f"layer{si + 1}",
+                            _stage(cin, width * 2 ** si, nblocks,
+                                   1 if si == 0 else 2))
+            cin = width * 2 ** si * 4
+        self.out_channels = tuple(width * 2 ** si * 4
+                                  for si in range(num_stages))
         frozen = ([self.stem] if freeze_at >= 1 else []) + [
-            getattr(self, f"layer{si + 1}") for si in range(min(freeze_at - 1, 4))]
+            getattr(self, f"layer{si + 1}")
+            for si in range(min(freeze_at - 1, num_stages))]
         for m in frozen:
             m.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> list:
         x = self.stem(x)
         feats = []
-        for si in range(4):
+        for si in range(self.num_stages):
             x = getattr(self, f"layer{si + 1}")(x)
             feats.append(x)
         return feats
+
+
+def _stage(cin: int, mid: int, nblocks: int, stride: int) -> nn.Sequential:
+    """``nblocks`` bottlenecks of ``mid`` channels, ``4 * mid`` out, the
+    stride on the first."""
+    cout = mid * 4
+    return nn.Sequential(*(Bottleneck(cin if bi == 0 else cout, mid, cout,
+                                      stride if bi == 0 else 1)
+                           for bi in range(nblocks)))
+
+
+class ResNetHead(nn.Module):
+    """The C4 models' res5 (upstream ``ResNetHead``): ``layer4`` on the
+    pooled 14x14 rois of ``in_channels`` (the C4 body's output, 1024 at
+    R-50) -> [N, 2 * in_channels, 7, 7], the stride on the first block's
+    1x1 conv, FrozenBN."""
+
+    def __init__(self, depth: int, in_channels: int):
+        super().__init__()
+        self.layer4 = _stage(in_channels, in_channels // 2,
+                             STAGE_BLOCKS[depth][3], 2)
+        self.out_channels = 2 * in_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer4(x)
 
 
 class BottleneckTV(nn.Module):

@@ -14,7 +14,9 @@ dispatches: the CUDA kernels (``csrc/roi_align.cu`` forward,
 (:func:`multilevel_roi_align_plain`,
 :func:`multilevel_roi_align_backward_plain`) for CPU tensors (see
 :mod:`tpuseg_torch.kernels`). :func:`roi_align` is the single-level pooler
-the mask targets use, plain torch.
+of the mask targets and of the C4 models (its adaptive grid), and
+:func:`roi_pool` the max pooler; both plain torch, as the JAX package
+leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -329,18 +331,31 @@ def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
 def roi_align(features: torch.Tensor, rois: torch.Tensor,
               batch_idx: torch.Tensor, output_size: int = 7,
               spatial_scale: float = 1.0, sampling_ratio: int = 2,
-              aligned: bool = False) -> torch.Tensor:
-    """Single-level RoIAlign (port of ``tpuseg/ops/sampling.py::roi_align``
-    with a fixed sampling grid; plain torch, as the JAX package leaves it to
-    XLA). features [B, C, H, W], rois [N, 4] xyxy image coordinates ->
-    [N, C, P, P]. ROIAlign_cuda border rules; ``aligned=True`` shifts the
-    roi by half a pixel and does not clamp its extent to >= 1. The adaptive
-    grid (``sampling_ratio=0``, the C4 pooler's) is not ported yet."""
-    if sampling_ratio <= 0:
-        raise NotImplementedError("adaptive sampling (sampling_ratio=0)")
+              aligned: bool = False, group_size: int | None = None
+              ) -> torch.Tensor:
+    """Single-level RoIAlign (port of ``tpuseg/ops/sampling.py::roi_align``;
+    plain torch, as the JAX package leaves it to XLA). features
+    [B, C, H, W], rois [N, 4] xyxy image coordinates -> [N, C, P, P].
+    ROIAlign_cuda border rules; ``aligned=True`` shifts the roi by half a
+    pixel and does not clamp its extent to >= 1.
+
+    ``sampling_ratio > 0`` samples a fixed S x S grid per bin;
+    ``sampling_ratio == 0`` is upstream's adaptive grid (the C4 pooler's):
+    ``gh = clip(ceil(roi_h / P), 1, s)`` rows (and ``gw`` columns) per bin
+    for the static bound ``s = ceil(max(H, W) / P)``, the slots past a
+    roi's own grid masked and the bin the sum over ``1 / (gh * gw)``.
+
+    ``group_size=R`` declares that ``batch_idx == repeat(arange(B), R)``
+    and takes the separable form ``pooled = Ay F Ax^T`` (:func:`_roi_align_
+    matmul`, differentiable in the features), whose memory does not grow
+    with the (P s)^2 sample lattice; without it the samples are gathered
+    (the fixed grid in the order of the RoIAlign kernel, the adaptive one
+    in chunks that bound the gather's memory).
+    """
     b, c, h, w = features.shape
-    p, s = output_size, sampling_ratio
+    p = output_size
     dt, dev = rois.dtype, rois.device
+    n = rois.shape[0]
     off = 0.5 if aligned else 0.0
     x1 = rois[:, 0] * spatial_scale - off
     y1 = rois[:, 1] * spatial_scale - off
@@ -349,17 +364,189 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
     if not aligned:
         roi_w = roi_w.clamp(min=1.0)
         roi_h = roi_h.clamp(min=1.0)
+    base = batch_idx.long() * (h * w)
+    full_h = torch.full((n,), h, dtype=dt, device=dev)
+    full_w = torch.full((n,), w, dtype=dt, device=dev)
     bins = torch.arange(p, dtype=dt, device=dev)
+    if sampling_ratio > 0 and group_size is None:
+        s = sampling_ratio
+        slots = torch.arange(s, dtype=dt, device=dev)
+        grid = (bins[:, None] + _true_div(slots + 0.5, s)[None, :]).reshape(-1)
+        lat = _Lattice(
+            full_h, full_w, base,
+            y1[:, None] + grid[None, :] * _true_div(roi_h, p)[:, None],
+            x1[:, None] + grid[None, :] * _true_div(roi_w, p)[:, None])
+        flat = features.permute(0, 2, 3, 1).reshape(b * h * w, c)
+        return _pool(flat, lat, p, s, features.dtype)
+
+    if sampling_ratio > 0:
+        s = sampling_ratio
+        gh = gw = torch.full((n,), s, dtype=dt, device=dev)
+    else:
+        s = -(-max(h, w) // p)
+        gh = torch.ceil(_true_div(roi_h, p)).clamp(1, s)
+        gw = torch.ceil(_true_div(roi_w, p)).clamp(1, s)
+    # slot i of bin k sits at k + (i + 0.5) / g bin units; slots >= g are
+    # masked off
     slots = torch.arange(s, dtype=dt, device=dev)
-    grid = (bins[:, None] + _true_div(slots + 0.5, s)[None, :]).reshape(-1)
-    n = rois.shape[0]
-    lat = _Lattice(torch.full((n,), h, dtype=dt, device=dev),
-                   torch.full((n,), w, dtype=dt, device=dev),
-                   batch_idx.long() * (h * w),
-                   y1[:, None] + grid[None, :] * _true_div(roi_h, p)[:, None],
-                   x1[:, None] + grid[None, :] * _true_div(roi_w, p)[:, None])
+    gy = bins[None, :, None] + (slots[None, None, :] + 0.5) / gh[:, None, None]
+    gx = bins[None, :, None] + (slots[None, None, :] + 0.5) / gw[:, None, None]
+    ys = y1[:, None] + gy.reshape(n, p * s) * _true_div(roi_h, p)[:, None]
+    xs = x1[:, None] + gx.reshape(n, p * s) * _true_div(roi_w, p)[:, None]
+    vy = (slots[None, None, :] < gh[:, None, None]).expand(n, p, s).reshape(
+        n, p * s)
+    vx = (slots[None, None, :] < gw[:, None, None]).expand(n, p, s).reshape(
+        n, p * s)
+    if group_size is not None:
+        return _roi_align_matmul(features, ys, xs, vy, vx, 1.0 / gh,
+                                 1.0 / gw, group_size, p, s)
     flat = features.permute(0, 2, 3, 1).reshape(b * h * w, c)
-    return _pool(flat, lat, p, s, features.dtype)
+    return _pool_masked(flat, _Lattice(full_h, full_w, base, ys, xs), vy, vx,
+                        1.0 / (gh * gw), p, s)
+
+
+# values in one [n, PS, PS, 4, C] corner gather of the adaptive RoIAlign and
+# in one [n, PS, PS, C] gather of the RoIPool
+_GATHER_VALUES = 1 << 26
+
+
+def _pool_masked(flat: torch.Tensor, lat: _Lattice, vy: torch.Tensor,
+                 vx: torch.Tensor, inv_count: torch.Tensor, p: int, s: int
+                 ) -> torch.Tensor:
+    """The gather form of the adaptive RoIAlign (the JAX ``one_chunk``):
+    each bin sums its live samples (``vy`` x ``vx``) and is scaled by the
+    roi's ``inv_count``; chunks of rois keep a corner gather within
+    ``_GATHER_VALUES`` values -> [N, C, P, P]."""
+    c = flat.shape[1]
+    acc_dt = _acc_dtype(flat.dtype)
+    ps = p * s
+    chunk = max(1, _GATHER_VALUES // (ps * ps * 4 * c))
+    out = []
+    for i in range(0, lat.base.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        idx4, w4 = _corners(lat, sl)
+        live = (vy[sl, :, None] & vx[sl, None, :])[..., None]
+        w4 = torch.where(live, w4, torch.zeros_like(w4))
+        val = (flat[idx4].to(acc_dt) * w4[..., None].to(acc_dt)).sum(-2)
+        val = val.reshape(val.shape[0], p, s, p, s, c).sum(dim=(2, 4))
+        out.append((val * inv_count[sl, None, None, None].to(acc_dt))
+                   .to(flat.dtype))
+    if not out:
+        return flat.new_zeros((0, c, p, p))
+    return torch.cat(out).permute(0, 3, 1, 2)
+
+
+def _interp_matrix(coord: torch.Tensor, slot_valid: torch.Tensor,
+                   inv_g: torch.Tensor, extent: int, p: int, s: int
+                   ) -> torch.Tensor:
+    """Per-roi separable interpolation matrix A [n, P, extent] (the JAX
+    ``_interp_matrix``): A[i, k, e] sums, over bin k's live slots, the
+    linear hat weight each sample puts on feature row (or column) e,
+    divided by g, so that ``pooled = Ay F Ax^T`` is the sample-then-average
+    of the gather form."""
+    n = coord.shape[0]
+    oob = (coord < -1.0) | (coord > extent)
+    t = coord.clamp(0.0, extent - 1)
+    t0 = torch.floor(t)
+    t1 = torch.clamp(t0 + 1, max=extent - 1)
+    lt = t - t0
+    w2 = torch.stack([1.0 - lt, lt], dim=-1)
+    w2 = torch.where(oob[..., None], torch.zeros_like(w2), w2)
+    w2 = (torch.where(slot_valid[..., None], w2, torch.zeros_like(w2))
+          * inv_g[:, None, None])
+    a = coord.new_zeros((n, p * s, extent)).scatter_add_(
+        2, torch.stack([t0, t1], dim=-1).long(), w2)
+    return a.reshape(n, p, s, extent).sum(dim=2)
+
+
+_MATMUL_ROIS = 64  # rois per product of the separable RoIAlign
+
+
+def _roi_align_matmul(features: torch.Tensor, ys: torch.Tensor,
+                      xs: torch.Tensor, vy: torch.Tensor, vx: torch.Tensor,
+                      inv_gh: torch.Tensor, inv_gw: torch.Tensor, r: int,
+                      p: int, s: int) -> torch.Tensor:
+    """RoIAlign as pooled = Ay F Ax^T over rois grouped ``r`` per image
+    (the JAX ``_roi_align_matmul``). Each chunk of at most ``_MATMUL_ROIS``
+    rois of one image contracts the columns first, [C*H, W] @ [W, n*P],
+    then the rows, one [P, H] @ [H, C*P] product per roi; both products
+    run in the feature dtype (f32: f32 accumulation, TF32 as the global
+    matmul setting has it, off by default). -> [N, C, P, P]."""
+    b, c, h, w = features.shape
+    n = ys.shape[0]
+    if n != b * r:
+        raise ValueError(f"{n} rois are not {b} images x {r}")
+    dt = features.dtype
+    ay = _interp_matrix(ys, vy, inv_gh, h, p, s).to(dt)  # [N, P, H]
+    ax = _interp_matrix(xs, vx, inv_gw, w, p, s).to(dt)  # [N, P, W]
+    out = []
+    for i in range(b):
+        f = features[i].reshape(c * h, w)
+        for j in range(i * r, (i + 1) * r, _MATMUL_ROIS):
+            sl = slice(j, min(j + _MATMUL_ROIS, (i + 1) * r))
+            k = sl.stop - sl.start
+            cols = f @ ax[sl].reshape(k * p, w).t()  # [C*H, k*P]
+            cols = cols.reshape(c, h, k, p).permute(2, 1, 0, 3).reshape(
+                k, h, c * p)
+            pooled = torch.bmm(ay[sl], cols)  # [k, P, C*P]
+            out.append(pooled.reshape(k, p, c, p).permute(0, 2, 1, 3))
+    if not out:
+        return features.new_zeros((0, c, p, p))
+    return torch.cat(out)
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor,
+             batch_idx: torch.Tensor, output_size: int = 7,
+             spatial_scale: float = 1.0) -> torch.Tensor:
+    """RoIPool, max pooling (port of ``tpuseg/ops/sampling.py::roi_pool``,
+    ROIPool_cuda.cu semantics): features [B, C, H, W], rois [N, 4] ->
+    [N, C, P, P].
+
+    The roi's corners are rounded to cells, its extent ``x2 - x1 + 1``
+    (>= 1); bin k spans cells ``[floor(k sz / P), ceil((k + 1) sz / P))``
+    from the roi's origin, clamped to the map, its bounds computed in
+    integer arithmetic (a float ``(k + 1) sz / P`` can land just above an
+    integer and take one cell too many); an empty bin is 0. Each bin looks
+    at ``ceil(max(H, W) / P) + 2`` candidate cells per axis, which holds
+    the widest bin of any roi."""
+    b, c, h, w = features.shape
+    n = rois.shape[0]
+    p = output_size
+    dev = rois.device
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * spatial_scale).long()
+                      for i in range(4))
+    roi_w = (x2 - x1 + 1).clamp(min=1)
+    roi_h = (y2 - y1 + 1).clamp(min=1)
+    s = -(-max(h, w) // p) + 2
+    bins = torch.arange(p, device=dev)
+    k = torch.arange(s, device=dev)
+
+    def axis(start, size, extent):
+        lo = (bins[None, :] * size[:, None] // p + start[:, None]).clamp(
+            0, extent)
+        hi = (-((-(bins[None, :] + 1) * size[:, None]) // p)
+              + start[:, None]).clamp(0, extent)
+        idx = (lo[:, :, None] + k).clamp(0, extent - 1)
+        return idx.reshape(n, p * s), (k < (hi - lo)[:, :, None]).reshape(
+            n, p * s)
+
+    ys, yv = axis(y1, roi_h, h)
+    xs, xv = axis(x1, roi_w, w)
+    flat = features.permute(0, 2, 3, 1).reshape(b * h * w, c)
+    base = batch_idx.long() * (h * w)
+    chunk = max(1, _GATHER_VALUES // ((p * s) ** 2 * c))
+    out = []
+    for i in range(0, n, chunk):
+        sl = slice(i, i + chunk)
+        lin = (base[sl, None, None] + ys[sl, :, None] * w + xs[sl, None, :])
+        g = flat[lin]  # [n, PS, PS, C]
+        live = (yv[sl, :, None] & xv[sl, None, :])[..., None]
+        g = g.masked_fill(~live, float("-inf"))
+        m = g.reshape(g.shape[0], p, s, p, s, c).amax(dim=(2, 4))
+        out.append(torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    if not out:
+        return features.new_zeros((0, c, p, p))
+    return torch.cat(out).permute(0, 3, 1, 2)
 
 
 # ---------------------------------------------------------------------------

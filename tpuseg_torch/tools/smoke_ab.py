@@ -7,10 +7,10 @@ Runs the smoke of ``--base`` (another checkout of the repository, for
 example the parent commit unpacked under the ignored ``build/``) and of this
 checkout in the order base, this, this, base, each in its own process from
 the root of its tree, with each run's output in ``--out``. Then prints, for
-every ``[12 timing]`` line of the smokes (kernels, their launch alone,
-forwards, training steps), the base's and this tree's numbers and the two
-means. Exits non-zero if a smoke failed. Needs the card that the smoke
-needs; two calls land on different cards, so compare two versions only
+every ``[12 timing]`` and ``[14 timing]`` line of the smokes (kernels,
+their launch alone, forwards, training steps), the base's and this tree's
+numbers and the two means. Exits non-zero if a smoke failed. Needs the
+card that the smoke needs; two calls land on different cards, so compare two versions only
 inside one run of this script.
 """
 from __future__ import annotations
@@ -25,13 +25,15 @@ ROOT = Path(__file__).resolve().parents[2]
 ORDER = ("base", "this", "this", "base")
 # "<name>: kernel 0.1 ms" (kernels) or "<name>: kernels 50 img/s (20 ms)"
 # (forwards, training steps): the first time in ms after the name
-TIMING = re.compile(r"\[12 timing\] (?:YOLACT\+\+ )?(.*?): kernels? "
+TIMING = re.compile(r"\[1[24] timing\] (?:YOLACT\+\+ )?(.*?): kernels? "
                     r"(?:[\d.]+ (?:img|it)/s )?\(?([\d.]+) ms")
 ALONE = re.compile(r"the kernel launch alone ([\d.]+) ms")
 
 
 def timings(log: str) -> dict:
-    """{name: ms} of a smoke's [12 timing] lines; a kernel line's launch alone
+    """{name: ms} of a smoke's [12 timing] and [14 timing] lines (phase
+    14's C4 pooler line times no kernel and is not read); a kernel line's
+    launch alone
     as '<name> (launch alone)'."""
     out = {}
     for line in log.splitlines():

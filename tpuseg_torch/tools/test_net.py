@@ -1,5 +1,6 @@
-"""Mask R-CNN COCO evaluation on the PyTorch port (detectron.jittor
-tools/test_net.py parity; the port's copy of ``tools/test_net.py``).
+"""Detectron COCO evaluation on the PyTorch port (detectron.jittor
+tools/test_net.py parity; the port's copy of ``tools/test_net.py``): the
+yaml picks Mask R-CNN or Faster R-CNN over FPN or C4, or RetinaNet.
 
     python -m tpuseg_torch.tools.test_net \
         --config-file configs/e2e_mask_rcnn_R_50_FPN_1x.yaml \
@@ -8,7 +9,7 @@ tools/test_net.py parity; the port's copy of ``tools/test_net.py``).
         MODEL.WEIGHT weights/e2e_mask_rcnn_R_50_FPN_1x.pth [--device=cpu]
 
 Without MODEL.WEIGHT the model has random weights (seed 0). Prints the
-bbox and segm COCOeval tables.
+bbox COCOeval table, and the segm one for the models with a mask head.
 """
 import argparse
 

@@ -1,5 +1,6 @@
-"""Mask R-CNN training on the PyTorch port (detectron.jittor
-tools/train_net.py parity; the port's copy of ``tools/train_net.py``).
+"""Detectron training on the PyTorch port (detectron.jittor
+tools/train_net.py parity; the port's copy of ``tools/train_net.py``): the
+yaml picks Mask R-CNN or Faster R-CNN over FPN or C4, or RetinaNet.
 
     python -m tpuseg_torch.tools.train_net \
         --config-file configs/e2e_mask_rcnn_R_50_FPN_1x.yaml \
@@ -34,8 +35,8 @@ def main(argv=None) -> list:
                                                 CocoDetectionDataset)
     from tpuseg_torch.engine.config import ConfigNode
     from tpuseg_torch.engine.detectron_train_loop import do_train
-    from tpuseg_torch.engine.maskrcnn_engine import model_config_from_node
-    from tpuseg_torch.models import maskrcnn as M
+    from tpuseg_torch.engine.maskrcnn_engine import (build_model,
+                                                     model_config_from_node)
 
     cfg = ConfigNode({
         "MODEL": {"WEIGHT": "", "MASK_ON": True},
@@ -65,12 +66,13 @@ def main(argv=None) -> list:
     dataset = CocoDetectionDataset(images, ann, label_map=COCO_LABEL_MAP)
     print(f"training on {len(dataset)} images; "
           f"max_iter {cfg.SOLVER.MAX_ITER}")
-    mcfg = model_config_from_node(cfg)
+    # the yaml's model: its variant, depth, MASK_ON and NUM_CLASSES
+    _, mcfg = model_config_from_node(cfg)
     model = None
     if cfg.MODEL.WEIGHT:
         from tpuseg_torch.weights.detectron_map import load_detectron_weights
 
-        model = load_detectron_weights(cfg.MODEL.WEIGHT, M.build_model(mcfg))
+        model = load_detectron_weights(cfg.MODEL.WEIGHT, build_model(mcfg))
     _, it, history = do_train(
         dataset, mcfg, model=model, base_lr=cfg.SOLVER.BASE_LR,
         steps=tuple(cfg.SOLVER.STEPS), max_iter=cfg.SOLVER.MAX_ITER,

@@ -1,7 +1,9 @@
 """The JAX package's param trees -> the port's state_dicts (Mask R-CNN and
-YOLACT).
+Faster R-CNN FPN and C4, RetinaNet, YOLACT).
 
-The inverses of ``tpuseg/weights/detectron_map.py::from_torch_state`` and
+The inverses of ``tpuseg/weights/detectron_map.py::from_torch_state``,
+``tpuseg/models/maskrcnn_c4.py::from_torch_state``,
+``tpuseg/models/retinanet.py::from_torch_state`` and
 ``tpuseg/weights/yolact_map.py::from_torch_state``: conv kernels HWIO ->
 OIHW, linear weights [in, out] -> [out, in], fc6's rows back from the NHWC
 (H, W, C) flattening to upstream's (C, H, W), and the deconv kernel
@@ -35,29 +37,54 @@ def _linear(sd: dict, name: str, p: dict, weight=None) -> None:
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
-def state_dict_from_jax(params: dict, cfg) -> dict:
-    """``params``: the tree ``from_torch_state``/``init_params`` returns;
-    ``cfg``: the port's (or the JAX) ``MaskRCNNConfig``."""
-    sd = {}
+def _stage(sd: dict, prefix: str, blocks: list) -> None:
+    """A detectron ResNet stage's bottlenecks under ``prefix``."""
+    for bi, blk in enumerate(blocks):
+        base = f"{prefix}.{bi}"
+        for i in (1, 2, 3):
+            _conv(sd, f"{base}.conv{i}", blk[f"conv{i}"])
+            _bn(sd, f"{base}.bn{i}", blk[f"bn{i}"])
+        if blk.get("downsample") is not None:
+            _conv(sd, f"{base}.downsample.0", blk["downsample"]["conv"])
+            _bn(sd, f"{base}.downsample.1", blk["downsample"]["bn"])
+
+
+def _body(sd: dict, bb: dict) -> None:
+    """``backbone.body.*``: the stem and the stages the tree has."""
     body = "backbone.body."
-    bb = params["backbone"]
     _conv(sd, body + "stem.conv1", bb["stem"]["conv"])
     _bn(sd, body + "stem.bn1", bb["stem"]["bn"])
     for si in range(4):
-        for bi, blk in enumerate(bb[f"layer{si + 1}"]):
-            base = f"{body}layer{si + 1}.{bi}"
-            for i in (1, 2, 3):
-                _conv(sd, f"{base}.conv{i}", blk[f"conv{i}"])
-                _bn(sd, f"{base}.bn{i}", blk[f"bn{i}"])
-            if blk.get("downsample") is not None:
-                _conv(sd, f"{base}.downsample.0", blk["downsample"]["conv"])
-                _bn(sd, f"{base}.downsample.1", blk["downsample"]["bn"])
+        if f"layer{si + 1}" in bb:
+            _stage(sd, f"{body}layer{si + 1}", bb[f"layer{si + 1}"])
+
+
+def _rpn(sd: dict, rpn: dict) -> None:
+    for src, dst in (("conv", "conv"), ("cls", "cls_logits"),
+                     ("bbox", "bbox_pred")):
+        _conv(sd, f"rpn.head.{dst}", rpn[src])
+
+
+def _mask_predictor(sd: dict, mp: dict) -> None:
+    """The deconv [kh, kw, in, out] -> [in, out, kh, kw] and the 1x1."""
+    sd["roi_heads.mask.predictor.conv5_mask.weight"] = _t(
+        np.asarray(mp["conv5_mask"]["weight"]).transpose(2, 3, 0, 1))
+    sd["roi_heads.mask.predictor.conv5_mask.bias"] = _t(
+        mp["conv5_mask"]["bias"])
+    _conv(sd, "roi_heads.mask.predictor.mask_fcn_logits",
+          mp["mask_fcn_logits"])
+
+
+def state_dict_from_jax(params: dict, cfg) -> dict:
+    """``params``: the tree ``from_torch_state``/``init_params`` returns;
+    ``cfg``: the port's (or the JAX) ``MaskRCNNConfig``. A tree without
+    ``mask_head`` (Faster R-CNN) gives no ``roi_heads.mask.*``."""
+    sd = {}
+    _body(sd, params["backbone"])
     for i in range(4):
         _conv(sd, f"backbone.fpn.fpn_inner{i + 1}", params["fpn"]["inner"][i])
         _conv(sd, f"backbone.fpn.fpn_layer{i + 1}", params["fpn"]["layer"][i])
-    for src, dst in (("conv", "conv"), ("cls", "cls_logits"),
-                     ("bbox", "bbox_pred")):
-        _conv(sd, f"rpn.head.{dst}", params["rpn"][src])
+    _rpn(sd, params["rpn"])
     bh = params["box_head"]
     c, r = cfg.fpn_channels, cfg.pooler_resolution
     fc6 = np.asarray(bh["fc6"]["weight"]).reshape(r, r, c, -1)
@@ -71,12 +98,46 @@ def state_dict_from_jax(params: dict, cfg) -> dict:
         for i in range(1, 5):
             _conv(sd, f"roi_heads.mask.feature_extractor.mask_fcn{i}",
                   mh[f"mask_fcn{i}"])
-        sd["roi_heads.mask.predictor.conv5_mask.weight"] = _t(
-            np.asarray(mh["conv5_mask"]["weight"]).transpose(2, 3, 0, 1))
-        sd["roi_heads.mask.predictor.conv5_mask.bias"] = _t(
-            mh["conv5_mask"]["bias"])
-        _conv(sd, "roi_heads.mask.predictor.mask_fcn_logits",
-              mh["mask_fcn_logits"])
+        _mask_predictor(sd, mh)
+    return sd
+
+
+def c4_state_dict_from_jax(params: dict) -> dict:
+    """The JAX C4 tree (``maskrcnn_c4.init_params`` / ``from_torch_state``)
+    -> the port's :class:`~tpuseg_torch.models.maskrcnn_c4.MaskRCNNC4`
+    state_dict; a tree without ``mask_pred`` (Faster R-CNN C4) gives no
+    ``roi_heads.mask.*``."""
+    sd = {}
+    _body(sd, params["backbone"])
+    _stage(sd, "roi_heads.box.feature_extractor.head.layer4",
+           params["roi_head"]["layer4"])
+    _rpn(sd, params["rpn"])
+    _linear(sd, "roi_heads.box.predictor.cls_score",
+            params["box_pred"]["cls_score"])
+    _linear(sd, "roi_heads.box.predictor.bbox_pred",
+            params["box_pred"]["bbox_pred"])
+    if "mask_pred" in params:
+        _mask_predictor(sd, params["mask_pred"])
+    return sd
+
+
+def retinanet_state_dict_from_jax(params: dict) -> dict:
+    """The JAX RetinaNet tree (``retinanet.init_params`` /
+    ``from_torch_state``) -> the port's
+    :class:`~tpuseg_torch.models.retinanet.RetinaNet` state_dict."""
+    sd = {}
+    _body(sd, params["backbone"])
+    fpn = params["fpn"]
+    for i in range(3):
+        _conv(sd, f"backbone.fpn.fpn_inner{i + 2}", fpn["inner"][i])
+        _conv(sd, f"backbone.fpn.fpn_layer{i + 2}", fpn["layer"][i])
+    _conv(sd, "backbone.fpn.top_blocks.p6", fpn["p6"])
+    _conv(sd, "backbone.fpn.top_blocks.p7", fpn["p7"])
+    for tower in ("cls_tower", "bbox_tower"):
+        for i, conv in enumerate(params[tower]):
+            _conv(sd, f"rpn.head.{tower}.{2 * i}", conv)
+    _conv(sd, "rpn.head.cls_logits", params["cls_logits"])
+    _conv(sd, "rpn.head.bbox_pred", params["bbox_pred"])
     return sd
 
 
