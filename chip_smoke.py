@@ -106,6 +106,24 @@ Phases, one line each; any failure raises and exits non-zero:
      (random weights: a forward and a training step each, its launches);
      after phase 13, test_net and train_net with the C4 and RetinaNet
      yamls over its dataset.
+  15. Pose2Seg at full width (ResNet-50 with the dilated C5, the 512
+     canvas, P2 128x128x256, max_people 16, 10 seg units, skeleton
+     features; synthetic upstream-keyed weights from a numpy seed, written
+     to last.pkl and read by the port's loader): Pose2SegPredictor in f32
+     and bf16 on an image with 6 people and one with 20 (one K4 launch per
+     chunk of 16, one backbone pass an image, sane masks); the heads on
+     one P2 map through the kernels and the plain versions (TF32 off:
+     within 1e-5 max|ref|); 3 Pose2SegTrainer steps at B = 4 with the
+     ground-truth warp over a keypoint dataset the smoke writes (2 K4 + 1
+     K4c per step, finite losses, every parameter moved, every running
+     statistic updated) and one step kernels vs plain (as phase 11); the
+     kernels at the path's own inputs (K4 bit for bit in f32 and bf16 and
+     against grid_sample, K4 at the warp's C = 1, K4c with d feats only);
+     pose2seg_test over the 8 images through both paths (stats equal or
+     within 1e-3 at equal counts) and pose2seg_train for 5 steps; timings
+     (K4 and K4c at its shapes against plain, bound, grid_sample; the
+     forward at B = 1 in f32 and bf16; run_on_image; the step at B = 4;
+     the CLIs).
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -135,6 +153,7 @@ from tpuseg_torch.data.native_loader import NativeImageLoader
 from tpuseg_torch.data.prefetch import DevicePrefetcher
 from tpuseg_torch.engine import detectron_train_loop as TL
 from tpuseg_torch.engine import maskrcnn_engine as ME
+from tpuseg_torch.engine import pose2seg_engine as P2SE
 from tpuseg_torch.engine import yolact_engine as YE
 from tpuseg_torch.engine import yolact_train_loop as YTL
 from tpuseg_torch.engine.maskrcnn_engine import (COCO_CATEGORY_IDS,
@@ -150,6 +169,8 @@ from tpuseg_torch.eval.coco import COCO
 from tpuseg_torch.eval.cocoeval import COCOeval
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import maskrcnn_c4 as C4
+from tpuseg_torch.models import pose2seg as P2S
+from tpuseg_torch.models import pose2seg_loss as P2SL
 from tpuseg_torch.models import retinanet as RN
 from tpuseg_torch.models import yolact as YM
 from tpuseg_torch.models import yolact_loss as YLOSS
@@ -2890,6 +2911,642 @@ def phase_family_clis(dev, data: dict, family: dict, tmp: Path,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: Pose2Seg
+# ---------------------------------------------------------------------------
+
+# the inference images (h, w) and their people: one chunk, and more than
+# max_people (two chunks over one backbone pass)
+P2S_IMAGES = (((480, 640), 6), ((640, 480), 20))
+P2S_BATCH = 4  # canvases a training step
+P2S_TRAIN_STEPS = 3
+# a training step: AffineAlign's and the ground-truth warp's samplings,
+# AffineAlign's gradient (d feats only: theta is data)
+P2S_PER_STEP = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+                "dcn_sample": 2, "dcn_sample_bwd": 1}
+P2S_DATASET_IMAGES = 8  # alternately landscape and portrait
+P2S_DATASET_HW = (480, 640)
+# the backward with d feats only, per sample and channel: 4 corner weights
+# times the gradient, 4 adds into d feats
+DCN_BWD_FEATS_OPS_PER_VALUE = 8
+COCO_KEYPOINT_NAMES = (
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee",
+    "right_knee", "left_ankle", "right_ankle")
+
+
+def template_people(rng: np.random.Generator, n: int, h: int, w: int,
+                    jitter: float = 0.01) -> np.ndarray:
+    """n people's COCO keypoints [n, 17, 3] inside an h x w image, all
+    visible: a pose template (Pose2Seg's, in turn) plus N(0, jitter) noise
+    in its unit frame, under a random similarity transform (its side 25-60
+    % of the image's shorter one, rotated within 0.3 rad), so that every
+    person's pose solves."""
+    tpl = P2S.templates()
+    out = np.zeros((n, 17, 3))
+    for i in range(n):
+        size = rng.uniform(0.25, 0.6) * min(h, w)
+        ang = rng.uniform(-0.3, 0.3)
+        rot = np.array([[np.cos(ang), -np.sin(ang)],
+                        [np.sin(ang), np.cos(ang)]])
+        pts = (tpl[i % len(tpl)] + rng.normal(0, jitter, (17, 2))
+               - 0.5) @ rot.T * size
+        lo, hi = pts.min(0), pts.max(0)
+        out[i, :, :2] = pts + rng.uniform(-lo, [w, h] - hi)
+        out[i, :, 2] = 2
+    return out
+
+
+def person_polygon(kp: np.ndarray, h: int, w: int) -> np.ndarray:
+    """A 16-point ellipse around a person's keypoints (their box widened by
+    a fifth), inside the image -> [16, 2] (x, y)."""
+    t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    lo, hi = kp[:, :2].min(0), kp[:, :2].max(0)
+    c, r = (lo + hi) / 2, (hi - lo) * 0.6 + 2
+    poly = np.stack([c[0] + r[0] * np.cos(t), c[1] + r[1] * np.sin(t)], 1)
+    return np.clip(poly, 0, [w - 1, h - 1]).round(2)
+
+
+def write_keypoint_dataset(root: Path, seed: int) -> tuple:
+    """A COCO person-keypoints dataset on disk: P2S_DATASET_IMAGES PNG
+    images of textured_image, each with 2-5 people (template_people)
+    painted in as the ellipses around their keypoints; per person its 17
+    keypoints and the ellipse as its polygon; per image one crowd region
+    (uncompressed RLE, no keypoints) and one person with a single visible
+    keypoint, which the evaluation and the training skip -> (image dir,
+    json path)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True)
+    images, anns = [], []
+
+    def add(i, kp, segm, area, bbox, crowd=0):
+        anns.append({"id": len(anns) + 1, "image_id": i, "category_id": 1,
+                     "bbox": bbox, "area": area, "iscrowd": crowd,
+                     "segmentation": segm, "num_keypoints":
+                     int((kp[:, 2] > 0).sum()) if kp is not None else 0,
+                     **({"keypoints": kp.reshape(-1).tolist()}
+                        if kp is not None else {})})
+
+    for i in range(1, P2S_DATASET_IMAGES + 1):
+        h, w = P2S_DATASET_HW if i % 2 else P2S_DATASET_HW[::-1]
+        img = textured_image(rng, h, w)
+        kps = template_people(rng, int(rng.integers(2, 6)), h, w)
+        for kp in kps:
+            poly = person_polygon(kp, h, w)
+            m = rle.decode(rle.poly_to_rle(poly.reshape(-1), h, w)) > 0
+            img[m] = (0.5 * img[m] + 0.5 * rng.integers(0, 256, 3)).astype(
+                np.uint8)
+            lo, hi = poly.min(0), poly.max(0)
+            add(i, kp.round(2), [poly.reshape(-1).tolist()], float(m.sum()),
+                [float(lo[0]), float(lo[1]), float(hi[0] - lo[0]),
+                 float(hi[1] - lo[1])])
+        lone = template_people(rng, 1, h, w)[0]
+        lone[1:, 2] = 0
+        poly = person_polygon(lone[:1], h, w)
+        add(i, lone.round(2), [poly.reshape(-1).tolist()], 1.0,
+            [float(lone[0, 0]), float(lone[0, 1]), 1.0, 1.0])
+        crowd = np.zeros((h, w), np.uint8)
+        crowd[10:60, 10:90] = 1
+        add(i, None, {"size": [h, w],
+                      "counts": rle.encode_counts(crowd).tolist()},
+            4000.0, [10.0, 10.0, 80.0, 50.0], crowd=1)
+        Image.fromarray(img).save(img_dir / f"{i:012d}.png")
+        images.append({"id": i, "height": h, "width": w,
+                       "file_name": f"{i:012d}.png"})
+    ann = root / "person_keypoints.json"
+    ann.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": 1, "name": "person",
+                        "keypoints": list(COCO_KEYPOINT_NAMES),
+                        "skeleton": [[a + 1, b + 1]
+                                     for a, b in P2S.COCO_SKELETON]}]}))
+    return str(img_dir), str(ann)
+
+
+def synthetic_pose2seg_state_dict(cfg, seed: int) -> dict:
+    """Upstream-keyed Pose2Seg weights from a numpy seed: conv weights
+    N(0, 1/fan_in), biases N(0, 0.05^2), BatchNorm weights U(0.5, 1.5),
+    biases N(0, 0.05^2), running means N(0, 0.1^2), running variances
+    U(0.5, 1.5)."""
+    with torch.device("meta"):
+        shapes = {k: tuple(t.shape)
+                  for k, t in P2S.Pose2Seg(cfg).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(0)
+            continue
+        if len(shape) == 4:
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("running_mean"):
+            a = rng.standard_normal(shape) * 0.1
+        elif k.endswith("weight"):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            a = rng.standard_normal(shape) * 0.05
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def calibrate_pose2seg(sd: dict, cfg, img: np.ndarray, kp: np.ndarray,
+                       dev) -> float:
+    """Shift the classifier's two biases so that the median foreground
+    margin (logit 1 - logit 0) over the valid people's aligned crops of
+    one image is 0: random weights otherwise leave every mask empty or
+    full. -> the margin removed."""
+    pred = P2SE.Pose2SegPredictor(cfg, state_dict=sd, device=dev)
+    x, inp = p2s_canvas(pred, img, kp)
+    with torch.inference_mode():
+        logits = pred.model.heads(pred.model.backbone(x), inp["theta"],
+                                  inp["skel"])
+    n = int(inp["person_valid"].sum())
+    margin = float((logits[0, :n, ..., 1] - logits[0, :n, ..., 0]).median())
+    sd["segnet.conv2.bias"] += torch.tensor([margin / 2, -margin / 2])
+    return margin
+
+
+def p2s_canvas(pred, img: np.ndarray, kp: np.ndarray) -> tuple:
+    """run_on_image's inputs of one image on the card: the canvas [1, 3,
+    S, S] in the model's dtype, and its first max_people people's heads
+    inputs."""
+    cfg = pred.cfg
+    h, w = img.shape[:2]
+    s = cfg.input_size
+    scale = s / max(h, w)
+    canvas = P2SE.canvas_image(img, s, int(round(h * scale)),
+                               int(round(w * scale)))
+    x = torch.from_numpy(canvas).permute(2, 0, 1)[None].to(pred.device,
+                                                           pred.dtype)
+    inp = P2S.person_inputs(kp, cfg, scale)
+    return x, {k: torch.from_numpy(v).to(pred.device) for k, v in inp.items()}
+
+
+def check_p2s_masks(out: dict, n: int, h: int, w: int, what: str) -> str:
+    """Every person valid, masks [n, h, w] uint8 in {0, 1}, each with
+    foreground and less than half the image."""
+    m, valid = out["masks"], out["valid"]
+    if (m.shape != (n, h, w) or m.dtype != np.uint8 or m.max() > 1
+            or not valid.all()):
+        raise AssertionError(f"{what}: masks {m.shape} {m.dtype}, valid "
+                             f"{valid.sum()} of {n}")
+    share = m.reshape(n, -1).mean(1)
+    if not ((share > 0) & (share < 0.5)).all():
+        raise AssertionError(f"{what}: mask shares of the image {share}")
+    return f"{share.min():.3f}-{share.max():.3f}"
+
+
+def p2s_step_grads(trainer, batch: dict, gt_aligned) -> tuple:
+    """The loss and parameter gradients of one training forward + backward
+    (train-mode BatchNorm; no update)."""
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    loss = trainer.loss(batch["images"], batch["theta"], batch["valid"],
+                        gt_aligned, batch["skel"])
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=False)
+    return {"loss": float(loss.detach())}, grads
+
+
+def grid_sample_feats_backward(feats, sy, sx, grad):
+    """AffineAlign's backward as PyTorch's: grid_sample's backward for the
+    features alone (align_corners=True, zeros); a closure to time."""
+    f = feats.detach().requires_grad_()
+    h, w = feats.shape[2:]
+    grid = torch.stack([2.0 * sx / (w - 1) - 1.0, 2.0 * sy / (h - 1) - 1.0],
+                       -1)[:, :, None, :].to(feats.dtype)
+    out = F.grid_sample(f, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)[..., 0].transpose(1, 2)
+    return lambda: torch.autograd.grad(out, f, grad, retain_graph=True)
+
+
+def dcn_feats_bwd_bound(feats, sy) -> tuple:
+    """The backward with d feats only: the [B, S, C] gradient and sy/sx
+    read, the f32 d feats accumulator [B, H, W, C] written."""
+    b, c, h, w = feats.shape
+    s = sy.shape[1]
+    nbytes = (b * s * c * feats.element_size() + b * s * 2 * 4
+              + b * h * w * c * 4)
+    return bound(nbytes, DCN_BWD_FEATS_OPS_PER_VALUE * b * s * c)
+
+
+def p2s_kernels(args: tuple, warp_args: tuple, bwd_args: tuple) -> str:
+    """The kernels at Pose2Seg's own inputs (the arguments the path gave
+    the wrappers): K4 at AffineAlign's [1, 256, 128, 128] and S = 16 x 64 x
+    64, f32 and bf16 equal to the plain version bit for bit, bf16 also
+    within 2^-8 |ref| + 1e-3 of the plain version in f32, grid_sample
+    within 1e-4 max|ref|; K4 at the warp's C = 1 equal bit for bit; K4c
+    with d feats only at the training step's B = 4 against its plain
+    version (phase 7's tolerances), f32 and bf16."""
+    with torch.inference_mode():
+        feats, sy, sx, _ = args
+        got = sampling.sample_points(feats, sy, sx)
+        want = sampling.sample_points_plain(feats, sy, sx)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                "AffineAlign's K4 differs from the plain version by "
+                f"{float((got - want).abs().max())}")
+        fb = feats.bfloat16()
+        got_bf = sampling.sample_points(fb, sy, sx)
+        if not torch.equal(got_bf, sampling.sample_points_plain(fb, sy, sx)):
+            raise AssertionError("AffineAlign's K4 in bf16 differs from the "
+                                 "plain version")
+        ref = sampling.sample_points_plain(fb.float(), sy, sx)
+        err_bf = (got_bf.float() - ref).abs()
+        excess = float((err_bf - (2.0 ** -8 * ref.abs() + 1e-3)).max())
+        if excess > 0:
+            raise AssertionError("AffineAlign's K4 bf16: past 2^-8|ref| + "
+                                 f"1e-3 by {excess}")
+        ones = torch.ones_like(sy)
+        lib_err = float((grid_sample_points(feats, sy, sx, ones) - want).abs()
+                        .max())
+        if lib_err > 1e-4 * float(want.abs().max()):
+            raise AssertionError("AffineAlign: grid_sample differs by "
+                                 f"{lib_err}")
+        gt, wy, wx, _ = warp_args
+        if not torch.equal(sampling.sample_points(gt, wy, wx),
+                           sampling.sample_points_plain(gt, wy, wx)):
+            raise AssertionError("the ground-truth warp's K4 (C = 1) differs "
+                                 "from the plain version")
+        grad, bfeats, by, bx = bwd_args[:4]
+        errs = []
+        for dt in (torch.float32, torch.bfloat16):
+            df = sampling.sample_points_backward(
+                grad.to(dt), bfeats.to(dt), by, bx, None, True, False)
+            with kernels.force_plain():
+                want_df = sampling.sample_points_backward(
+                    grad.float(), bfeats.float(), by, bx, None, True, False)
+            if df[1:] != (None, None, None):
+                raise AssertionError("K4c with d feats only returned "
+                                     "coordinate gradients")
+            errs.append(dcn_bwd_error(df[:1], want_df[:1], dt,
+                                      f"AffineAlign's K4c {str(dt)[6:]}"))
+        torch.cuda.synchronize()
+        outside = float((want[..., 0] == 0).float().mean())
+        return (f"K4 {tuple(feats.shape)} S={sy.shape[1]} f32 and bf16 "
+                "equal to the plain version, bf16 vs the f32 plain max err "
+                f"{float(err_bf.max()):.3g}, grid_sample {lib_err:.3g}, "
+                f"{100 * outside:.1f} % of samples wholly outside; K4 C = 1 "
+                f"{tuple(gt.shape)} S={wy.shape[1]} equal; K4c d feats only "
+                f"{tuple(bfeats.shape)} S={by.shape[1]} max err f32 "
+                f"{errs[0]:.3g}, bf16 {errs[1]:.3g}")
+
+
+def p2s_batch(ds, cfg, dev) -> dict:
+    """The first P2S_BATCH training canvases of the dataset (train_example,
+    as the training CLI builds them) on the card."""
+    from tpuseg_torch.tools.pose2seg_train import train_example
+
+    exs = [ex for ex in (train_example(ds, iid, cfg) for iid in ds.image_ids)
+           if ex is not None and ex["valid"].any()][:P2S_BATCH]
+    return {k: torch.from_numpy(np.concatenate([ex[k] for ex in exs])).to(dev)
+            for k in exs[0]}
+
+
+def phase_pose2seg(dev, tmp: Path, card: str) -> dict:
+    """Phase 15: Pose2Seg at full width (R-50 with the dilated C5, the 512
+    canvas, P2 128x128x256, max_people 16, 10 seg units, cat_skeleton),
+    weights from a numpy seed loaded through the last.pkl loader:
+    inference, the kernels at its inputs, training, the two CLIs and the
+    timings."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+    from tpuseg_torch.tools import pose2seg_test, pose2seg_train
+    from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
+
+    cfg = P2S.Pose2SegConfig()
+    rng = np.random.default_rng(SEED + 31)
+    cases = [(textured_image(rng, h, w), template_people(rng, n, h, w))
+             for (h, w), n in P2S_IMAGES]
+    sd = synthetic_pose2seg_state_dict(cfg, SEED + 30)
+    margin = calibrate_pose2seg(sd, cfg, *cases[0], dev)
+    ckpt = tmp / "last.pkl"
+    torch.save(sd, ckpt)
+    out = {"counts": {}, "times": {}, "shapes": {}}
+
+    # inference through the predictor, f32 and bf16: one K4 launch a chunk
+    # of max_people, one backbone pass an image
+    preds, masks = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        pred = P2SE.Pose2SegPredictor(weights=str(ckpt), dtype=dt, device=dev)
+        if not pred.cfg.cat_skeleton or pred.cfg.seg_units != cfg.seg_units:
+            raise AssertionError(f"the loader gave {pred.cfg}")
+        preds[dt], lines = pred, []
+        for img, kp in cases:
+            h, w = img.shape[:2]
+            passes = []
+            body = pred.model.backbone.forward
+            pred.model.backbone.forward = (
+                lambda x, body=body: passes.append(1) or body(x))
+            kernels.reset_launch_counts()
+            res = pred.run_on_image(img, kp)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+            del pred.model.backbone.forward
+            chunks = -(-len(kp) // cfg.max_people)
+            want = {**{k: 0 for k in got}, "dcn_sample": chunks}
+            if got != want or len(passes) != 1:
+                raise AssertionError(f"Pose2Seg {len(kp)} people launched "
+                                     f"{got}, want {want}; {len(passes)} "
+                                     "backbone passes, want 1")
+            shares_ = check_p2s_masks(res, len(kp), h, w,
+                                      f"Pose2Seg {str(dt)[6:]} {h}x{w}")
+            masks[dt, h] = res["masks"]
+            path = f"pose2seg_inference_{str(dt)[6:]}_{len(kp)}_people"
+            out["counts"][path] = got
+            lines.append(f"{h}x{w} with {len(kp)} people: {chunks} chunk(s), "
+                         f"launches {compact(got)}, 1 backbone pass, every "
+                         f"person valid, mask shares of the image {shares_}")
+        log(f"[15 pose2seg] Pose2SegPredictor {str(dt)[6:]} (weights "
+            f"through load_pose2seg_weights, the classifier's median margin "
+            f"{margin:.4g} removed): " + "; ".join(lines))
+    agree_bf = {f"{img.shape[0]}x{img.shape[1]}": round(float(
+        (masks[torch.float32, img.shape[0]]
+         == masks[torch.bfloat16, img.shape[0]]).mean()), 5)
+        for img, _ in cases}
+    log(f"[15 pose2seg] bf16 masks equal to f32's on a share "
+        f"{agree_bf} of the pixels (no limit: bf16 moves the 0.5 threshold)")
+
+    # the heads on one shared P2 map: kernels vs plain
+    pred = preds[torch.float32]
+    img, kp = cases[1]
+    x, inp = p2s_canvas(pred, img, kp)
+    heads = (inp["theta"], inp["inv_theta"], inp["person_valid"], inp["skel"])
+    with torch.inference_mode(), exact_convs():
+        feats = pred.model.backbone(x)
+        got = pred.model.forward_from_features(feats, *heads)
+        with kernels.force_plain():
+            want = pred.model.forward_from_features(feats, *heads)
+        args = kernel_args(dcn_kernel, "sample_points",
+                           lambda: pred.model.heads(feats, inp["theta"],
+                                                    inp["skel"]))
+    diffs = {}
+    for k in ("aligned_logits", "masks"):
+        d = float((got[k] - want[k]).abs().max())
+        if d > 1e-5 * float(want[k].abs().max()):
+            raise AssertionError(f"Pose2Seg heads {k}: kernels vs plain "
+                                 f"differ by {d}")
+        diffs[k] = d
+    log(f"[15 pose2seg] heads on one P2 map {tuple(feats.shape)}, 16 people, "
+        f"kernels vs plain (TF32 off, deterministic cuDNN): aligned logits "
+        f"max diff {diffs['aligned_logits']:.3g}, masks "
+        f"{diffs['masks']:.3g} (limit 1e-5 max|ref|)")
+
+    # training: P2S_TRAIN_STEPS Pose2SegTrainer steps at B = 4 with the
+    # ground-truth warp
+    img_dir, ann = write_keypoint_dataset(tmp / "keypoints", SEED + 32)
+    ds = CocoDetectionDataset(img_dir, ann, label_map=None)
+    batch = p2s_batch(ds, cfg, dev)
+    sd, _ = load_pose2seg_weights(str(ckpt), cfg)
+    model = P2S.build_model(cfg)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(dev)
+    trainer = P2SL.Pose2SegTrainer(model)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def warp():
+        return (P2SL.warp_gt_to_aligned(batch["gt_masks"], batch["theta"],
+                                        cfg.align_size) > 0.5).float()
+
+    def step(it=0):
+        return trainer.train_step(batch["images"], batch["theta"],
+                                  batch["valid"], warp(), it,
+                                  skel=batch["skel"])
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(it)) for it in range(P2S_TRAIN_STEPS)]
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {k: P2S_TRAIN_STEPS * v for k, v in P2S_PER_STEP.items()}
+    if counts != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"Pose2Seg training launched {counts}, want "
+                             f"{want}; losses {losses}")
+    out["counts"]["pose2seg_training"] = counts
+    after = model.state_dict()
+    still = [n for n, _ in model.named_parameters()
+             if torch.equal(after[n], before[n])]
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    stale = [k for k in stats if torch.equal(after[k], before[k])]
+    if still or stale:
+        raise AssertionError(f"parameters that did not move: {still}; "
+                             f"running statistics not updated: {stale}")
+    n_valid = int(batch["valid"].sum())
+    log(f"[15 pose2seg] Pose2SegTrainer {P2S_TRAIN_STEPS} steps at B = "
+        f"{P2S_BATCH} ({n_valid} people) with the ground-truth warp, f32 "
+        f"with TF32 convolutions, train-mode BatchNorm, in {seconds:.1f} s: "
+        f"launches {compact(counts)} ({compact(P2S_PER_STEP)} per step); "
+        f"losses {[round(v, 5) for v in losses]}; all "
+        f"{len(list(model.parameters()))} parameters moved, {len(stats)} "
+        "running statistics updated")
+    gt_aligned = warp()
+    warp_args = kernel_args(dcn_kernel, "sample_points", warp)
+    bwd_args = kernel_args(dcn_kernel, "sample_points_backward",
+                           lambda: p2s_step_grads(trainer, batch, gt_aligned))
+    log(f"[15 pose2seg] the kernels at Pose2Seg's inputs: "
+        f"{p2s_kernels(args, warp_args, bwd_args)}")
+    # one step on one batch, kernels vs plain, TF32 off and deterministic
+    # cuDNN, two runs each: held as phase 11 holds YOLACT++'s train-mode
+    # step. The whole model trains in train mode, and the gradient of a
+    # bias in front of AffineAlign (latlayer*, smooth3) is a per-channel
+    # sum that segnet's train-mode BatchNorm nearly cancels, which
+    # magnifies the rounding of the atomic adds (K4c's, and index_add_'s on
+    # the plain path): phase 9's elementwise rtol 1e-4 / atol 1e-6 max|g|
+    # failed there by 3.2e-5 max|g| (smooth3.bias, measured on an H100)
+    with exact_convs():
+        kernels.reset_launch_counts()
+        runs = [p2s_step_grads(trainer, batch, gt_aligned)]
+        path_counts = kernels.launch_counts()
+        runs.append(p2s_step_grads(trainer, batch, gt_aligned))
+        with kernels.force_plain():
+            runs += [p2s_step_grads(trainer, batch, gt_aligned)
+                     for _ in range(2)]
+        torch.cuda.synchronize()
+    if path_counts != {**P2S_PER_STEP, "dcn_sample": 1}:
+        raise AssertionError(f"Pose2Seg kernel-path step launched "
+                             f"{path_counts}")
+    log(f"[15 pose2seg] one step, kernels vs plain (cudnn.allow_tf32 False, "
+        f"cudnn.deterministic True), train-mode BatchNorm: "
+        f"{compare_train_mode(*runs)}")
+
+    # the two CLIs on the card, over the keypoint dataset
+    def run(main, argv):
+        kernels.reset_launch_counts()
+        with quiet() as buf, step_starts(P2SL.Pose2SegTrainer) as starts:
+            t0 = time.perf_counter()
+            result = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return result, kernels.launch_counts(), wall, starts, buf.getvalue()
+
+    evals, found = {}, []
+    orig = P2SE.Pose2SegPredictor.run_on_image
+
+    def counted(self, *a):
+        res = orig(self, *a)
+        found[-1] += int(res["valid"].sum())
+        return res
+
+    P2SE.Pose2SegPredictor.run_on_image = counted
+    try:
+        for plain in (False, True):
+            found.append(0)
+            with exact_convs(), (kernels.force_plain() if plain
+                                 else contextlib.nullcontext()):
+                evals[plain] = run(pose2seg_test.main, [
+                    "--weights", str(ckpt), "--coco", "--coco_images",
+                    img_dir, "--coco_ann", ann])
+    finally:
+        P2SE.Pose2SegPredictor.run_on_image = orig
+    stats, counts, wall, _, _ = evals[False]
+    people = sum(len(P2SE.image_keypoints(ds, i)) for i in ds.image_ids)
+    want = {**{k: 0 for k in counts}, "dcn_sample": P2S_DATASET_IMAGES}
+    if counts != want or found[0] != people:
+        raise AssertionError(f"pose2seg_test launched {counts}, want {want}; "
+                             f"{found[0]} of {people} people valid")
+    same = agree(stats, evals[True][0], found[0], found[1],
+                 "pose2seg_test")
+    out["counts"]["cli_pose2seg_test"] = counts
+    out["times"]["pose2seg_test s/img"] = wall / P2S_DATASET_IMAGES
+    log(f"[15 cli] pose2seg_test --coco over {P2S_DATASET_IMAGES} images "
+        f"({people} people; the crowds and one-keypoint people skipped): "
+        f"launches {compact(counts)}, segm AP {stats['cocoVal'][0]:.4f}; "
+        f"kernels vs plain (TF32 off, deterministic cuDNN) {same}; "
+        f"{wall:.1f} s")
+    save = tmp / "pose2seg_last.pth"
+    losses, counts, wall, starts, _ = run(pose2seg_train.main, [
+        "--images", img_dir, "--annotations", ann, "--steps",
+        str(CLI_TRAIN_STEPS), "--save", str(save)])
+    want = {k: CLI_TRAIN_STEPS * v for k, v in P2S_PER_STEP.items()}
+    if (counts != want or len(losses) != CLI_TRAIN_STEPS
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"pose2seg_train launched {counts}, want {want}; "
+                             f"losses {losses}")
+    back = P2SE.Pose2SegPredictor(weights=str(save), device=dev)
+    out["counts"]["cli_pose2seg_train"] = counts
+    gaps = np.diff(starts)
+    out["times"]["pose2seg_train s/it"] = float(np.median(gaps[1:]))
+    log(f"[15 cli] pose2seg_train --steps {CLI_TRAIN_STEPS}: launches "
+        f"{compact(counts)}; losses {[round(v, 5) for v in losses]}; "
+        f"{wall:.1f} s in main(); {save.name} loads through "
+        f"load_pose2seg_weights (seg_units {back.cfg.seg_units}); "
+        f"{out['times']['pose2seg_train s/it']:.3f} s/it, host included "
+        f"(the median interval between steps' starts after the first; all "
+        f"{[round(float(g), 3) for g in gaps]}) [{card}]")
+    del back
+
+    out["times"].update(time_pose2seg(preds, cases, trainer, step, args,
+                                      warp_args, bwd_args, card))
+    out["shapes"] = {k: v for k, v in out["times"].items()
+                     if k.startswith(("dcn_sample ", "dcn_sample_bwd "))}
+    return out
+
+
+def time_pose2seg(preds, cases, trainer, step, args, warp_args, bwd_args,
+                  card: str) -> dict:
+    """K4 and K4c at Pose2Seg's shapes against their plain versions, their
+    bounds and grid_sample (and its backward), f32 and bf16; the forward
+    at B = 1 (16 people) through both paths, f32 and bf16, and
+    run_on_image on the host clock; the training step at B = 4."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+
+    times = {}
+    feats, sy, sx, _ = args
+    gt, wy, wx, _ = warp_args
+    with torch.inference_mode():
+        for label, f, y, x, dts in (
+                ("AffineAlign", feats, sy, sx,
+                 (torch.float32, torch.bfloat16)),
+                ("ground-truth warp", gt, wy, wx, (torch.float32,))):
+            for dt in dts:
+                fd = f.to(dt)
+                k, p = time_pair(lambda: sampling.sample_points(fd, y, x),
+                                 iters=10)
+                alone = cuda_time_ms(
+                    lambda: dcn_kernel.sample_points(fd, y, x), 10)
+                ones = torch.ones_like(y)
+                lib = cuda_time_ms(
+                    lambda: grid_sample_points(fd, y, x, ones), iters=10)
+                b, c, h, w = fd.shape
+                nbytes = (dcn_touched_cells(y, x, h, w) * c * fd.element_size()
+                          + b * y.shape[1] * 2 * 4
+                          + b * y.shape[1] * c * fd.element_size())
+                name = (f"dcn_sample {str(dt)[6:]} Pose2Seg {label} B={b} "
+                        f"{h}x{w}x{c} S={y.shape[1]}")
+                times[name] = ((k, p) + bound(nbytes, DCN_OPS_PER_VALUE * b
+                                              * y.shape[1] * c)
+                               + (lib, alone))
+                log(f"[15 timing] {name}: kernel {k:.4f} ms (the launch "
+                    f"alone {alone:.4f}), plain {p:.4f} ms, bound "
+                    f"{times[name][2]:.4g} ms by {times[name][3]}, "
+                    f"grid_sample {lib:.4f} ms [{card}]")
+    grad, bfeats, by, bx = bwd_args[:4]
+    for dt in (torch.float32, torch.bfloat16):
+        g, f = grad.to(dt), bfeats.to(dt)
+
+        def bwd():
+            return sampling.sample_points_backward(g, f, by, bx, None, True,
+                                                   False)
+
+        k, p = time_pair(bwd, iters=10)
+        alone = cuda_time_ms(lambda: dcn_kernel.sample_points_backward(
+            g, f, by, bx, None, True, False), 10)
+        lib = cuda_time_ms(grid_sample_feats_backward(f, by, bx, g), iters=10)
+        b, c, h, w = f.shape
+        name = (f"dcn_sample_bwd {str(dt)[6:]} Pose2Seg d feats only B={b} "
+                f"{h}x{w}x{c} S={by.shape[1]}")
+        times[name] = (k, p) + dcn_feats_bwd_bound(f, by) + (lib, alone)
+        log(f"[15 timing] {name}: kernel {k:.4f} ms (the launch alone "
+            f"{alone:.4f}), plain {p:.4f} ms, bound {times[name][2]:.4g} ms "
+            f"by {times[name][3]}, grid_sample backward {lib:.4f} ms "
+            f"[{card}]")
+    for dt, pred in preds.items():
+        img, kp = cases[1]
+        x, inp = p2s_canvas(pred, img, kp)
+        heads = (inp["theta"], inp["inv_theta"], inp["person_valid"],
+                 inp["skel"])
+        with torch.inference_mode():
+            k, p = time_pair(lambda: pred.model(x, *heads), iters=5)
+        name = f"pose2seg forward {str(dt)[6:]} B=1"
+        times[name] = (k, p)
+        log(f"[15 timing] Pose2Seg forward {str(dt)[6:]} B=1, "
+            f"{pred.cfg.max_people} people, {pred.cfg.input_size} canvas: "
+            f"kernels {1e3 / k:.2f} img/s ({k:.3f} ms), plain {1e3 / p:.2f} "
+            f"img/s ({p:.3f} ms) [{card}]")
+        for img, kp in cases:
+            pred.run_on_image(img, kp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pred.run_on_image(img, kp)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+            name = f"pose2seg run_on_image {str(dt)[6:]} {len(kp)} people"
+            times[name] = (wall,)
+            log(f"[15 timing] Pose2Seg run_on_image {str(dt)[6:]} "
+                f"{img.shape[0]}x{img.shape[1]}, {len(kp)} people: {wall:.1f} "
+                f"ms on the host clock, mean of 3 (host included: template "
+                f"choice and skeleton features on the host) [{card}]")
+    k1 = cuda_time_ms(step, iters=5, warmup=2)
+    with kernels.force_plain():
+        p = cuda_time_ms(step, iters=2, warmup=1)
+    k2 = cuda_time_ms(step, iters=5, warmup=0)
+    k = (k1 + k2) / 2
+    times[f"pose2seg train step B={P2S_BATCH}"] = (k, p)
+    log(f"[15 timing] Pose2Seg train step B={P2S_BATCH} (the ground-truth "
+        f"warp, forward, backward, SGD; TF32 convolutions): kernels "
+        f"{k:.3f} ms ({1e3 * P2S_BATCH / k:.2f} img/s; two runs of 5: "
+        f"{k1:.3f}, {k2:.3f}), plain {p:.3f} ms (mean of 2) [{card}]")
+    return times
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -2983,6 +3640,10 @@ def main() -> int:
                           card)
         family["counts"].update(phase_family_clis(dev, data, family,
                                                   Path(tmp), card))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pose2seg = phase_pose2seg(dev, Path(tmp), card)
+    times.update(pose2seg["times"])
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
@@ -2990,7 +3651,8 @@ def main() -> int:
         13's: evaluate_coco over 16 images, evaluate_dataset over 16, and
         each CLI's run; phase 14's: one B = 2 forward and three training
         steps of C4, Faster R-CNN FPN and RetinaNet, and their CLIs'
-        runs."""
+        runs; phase 15's: Pose2Seg's run_on_image of each image in f32 and
+        bf16, three training steps and its CLIs' runs."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
@@ -2998,10 +3660,16 @@ def main() -> int:
                 "coco_evaluate_coco": coco_mrcnn["counts"][name],
                 "coco_evaluate_dataset": coco_yolact["counts"][name],
                 **{f"cli_{c}": n[name] for c, n in clis["counts"].items()},
-                **{path: n[name] for path, n in family["counts"].items()}}
+                **{path: n[name] for path, n in family["counts"].items()},
+                **{path: n[name] for path, n in pose2seg["counts"].items()}}
 
-    log(f"[15 total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 14 (the kernels' build included)")
+    def pose2seg_shapes(prefix: str) -> dict:
+        return {label: shape_entry(t)
+                for label, t in pose2seg["shapes"].items()
+                if label.startswith(prefix + " ")}
+
+    log(f"[total] {time.perf_counter() - start:.1f} s from the start of "
+        "main to the end of phase 15 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
@@ -3023,17 +3691,22 @@ def main() -> int:
                         launches("roi_align_bwd"), bwd_res["max_abs_err"],
                         times[k3]),
          "kernel_alone_direct_ms": times[k3 + " direct"]},
-        kernel_entry("dcn_sample", "tpuseg_torch/csrc/dcn_sample.cu",
-                     ["tpuseg/ops/pallas/dcn_pl.py:60",
-                      "tpuseg/ops/pallas/dcn_pl.py:212"],
-                     launches("dcn_sample"), dcn_res["max_abs_err"],
-                     times[f"dcn_sample float32 B={DCN_BATCH} 69x69x128 s1"]),
+        # K4 and K4c also at Pose2Seg's shapes (phase 15), on the inputs
+        # the path gave them
+        {**kernel_entry("dcn_sample", "tpuseg_torch/csrc/dcn_sample.cu",
+                        ["tpuseg/ops/pallas/dcn_pl.py:60",
+                         "tpuseg/ops/pallas/dcn_pl.py:212"],
+                        launches("dcn_sample"), dcn_res["max_abs_err"],
+                        times[f"dcn_sample float32 B={DCN_BATCH} "
+                              "69x69x128 s1"]),
+         "shapes": pose2seg_shapes("dcn_sample")},
         {**kernel_entry("dcn_sample_bwd",
                         "tpuseg_torch/csrc/dcn_sample_bwd.cu",
                         "tpuseg/ops/pallas/dcn_pl.py:311",
                         launches("dcn_sample_bwd"),
                         dcn_bwd_res["max_abs_err"], times[k4c]),
-         "kernel_alone_split_ms": times[k4c + " split"]},
+         "kernel_alone_split_ms": times[k4c + " split"],
+         "shapes": pose2seg_shapes("dcn_sample_bwd")},
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -473,6 +473,67 @@ def test_deform_conv2d_gradients_on_the_card_match_plain():
     assert counts["dcn_sample"] == 1 and counts["dcn_sample_bwd"] == 1
 
 
+def _pose2seg_thetas(rng, b, n):
+    """Pose2Seg-like crop thetas [b, n, 2, 3]: similarity transforms of
+    scale 0.15-0.6 (people of a 512 canvas), some crops past the border."""
+    th = np.zeros((b, n, 2, 3), np.float32)
+    s = rng.uniform(0.15, 0.6, (b, n))
+    a = rng.uniform(-0.4, 0.4, (b, n))
+    th[..., 0, 0], th[..., 0, 1] = s * np.cos(a), -s * np.sin(a)
+    th[..., 1, 0], th[..., 1, 1] = s * np.sin(a), s * np.cos(a)
+    th[..., 2] = rng.uniform(-0.9, 0.9, (b, n, 2))
+    return torch.from_numpy(th)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_align_kernels_at_the_pose2seg_shape(dtype):
+    """Pose2Seg's AffineAlign: P2 [2, 256, 128, 128] (NCHW, as the FPN
+    gives it), 16 people's 64x64 crops an image (S = 65 536): one
+    dcn_sample launch, equal to the plain version bit for bit; its
+    gradient through autograd (d feats only, one dcn_sample_bwd launch)
+    against the plain backward computed in f32 (phase 7's tolerances)."""
+    dev = _device()
+    rng = np.random.default_rng(16)
+    feats = torch.from_numpy(rng.standard_normal((2, 256, 128, 128)).astype(
+        np.float32)).to(dev, dtype)
+    theta = _pose2seg_thetas(rng, 2, 16).to(dev)
+    cot = torch.from_numpy(rng.standard_normal((2, 16, 64, 64, 256)).astype(
+        np.float32)).to(dev, dtype)
+    kernels.reset_launch_counts()
+    f = feats.clone().requires_grad_()
+    got = sampling.affine_align(f, theta, 64)
+    got.backward(cot)
+    counts = kernels.launch_counts()
+    assert counts["dcn_sample"] == 1 and counts["dcn_sample_bwd"] == 1
+    with kernels.force_plain():
+        assert torch.equal(got.detach(), sampling.affine_align(feats, theta,
+                                                               64))
+        ff = feats.float().requires_grad_()
+        sampling.affine_align(ff, theta, 64).backward(cot.float())
+    assert bool((got[..., 0] == 0).any())  # crops past the map
+    _assert_points_bwd_close((f.grad, None, None, None),
+                             (ff.grad, None, None, None), dtype)
+
+
+def test_gt_warp_kernel_at_the_pose2seg_shape():
+    """The training step's ground-truth warp: 2 x 16 binary 512x512 masks,
+    each under its own theta (C = 1, the kernel's scalar path): one
+    dcn_sample launch, equal to the plain version bit for bit."""
+    from tpuseg_torch.models.pose2seg_loss import warp_gt_to_aligned
+
+    dev = _device()
+    rng = np.random.default_rng(17)
+    gt = torch.from_numpy((rng.uniform(size=(2, 16, 512, 512)) < 0.3)
+                          .astype(np.float32)).to(dev)
+    theta = _pose2seg_thetas(rng, 2, 16).to(dev)
+    kernels.reset_launch_counts()
+    got = warp_gt_to_aligned(gt, theta, 64)
+    assert kernels.launch_counts()["dcn_sample"] == 1
+    with kernels.force_plain():
+        assert torch.equal(got, warp_gt_to_aligned(gt, theta, 64))
+    assert got.shape == (2, 16, 64, 64) and bool((got > 0).any())
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     dev = _device()
     from tpuseg_torch.kernels.nms import nms_keep

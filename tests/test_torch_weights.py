@@ -41,7 +41,10 @@ SLICE_MODULES = [
     "tpuseg_torch.tools.test_net", "tpuseg_torch.tools.train_net",
     "tpuseg_torch.tools.yolact_eval", "tpuseg_torch.tools.yolact_train",
     "tpuseg_torch.models.maskrcnn_c4", "tpuseg_torch.models.retinanet",
-    "tpuseg_torch.ops.losses",
+    "tpuseg_torch.ops.losses", "tpuseg_torch.models.pose2seg",
+    "tpuseg_torch.models.pose2seg_loss", "tpuseg_torch.weights.pose2seg_map",
+    "tpuseg_torch.engine.pose2seg_engine", "tpuseg_torch.tools.pose2seg_test",
+    "tpuseg_torch.tools.pose2seg_train",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -139,16 +142,17 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
 
 def test_entry_points_default_to_the_card():
     """Every variant of the predictor (the detectron family: "fpn", "c4",
-    "retinanet") and do_train for each model's config run on the card
-    unless the caller asks for the CPU."""
+    "retinanet"), do_train for each model's config and the Pose2Seg
+    predictor run on the card unless the caller asks for the CPU."""
     from tpuseg_torch.engine.detectron_train_loop import do_train
     from tpuseg_torch.engine.maskrcnn_engine import (VARIANTS,
                                                      MaskRCNNPredictor)
+    from tpuseg_torch.engine.pose2seg_engine import Pose2SegPredictor
     from tpuseg_torch.engine.predictor import COCODemo
     from tpuseg_torch.engine.yolact_train_loop import train
 
     for fn in (MaskRCNNPredictor.__init__, COCODemo.__init__, do_train,
-               train):
+               train, Pose2SegPredictor.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert sorted(VARIANTS) == ["c4", "fpn", "retinanet"]
     if not torch.cuda.is_available():
@@ -161,3 +165,5 @@ def test_entry_points_default_to_the_card():
                 do_train(None, config(num_classes=NC))
         with pytest.raises(RuntimeError, match="CUDA"):
             train(None, None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Pose2SegPredictor()

@@ -69,13 +69,14 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     return np.take_along_axis(tab, pick, -1).astype(np.float32)
 
 
-def resize_bilinear(a: np.ndarray, size: int) -> np.ndarray:
-    """[H, W] or [H, W, C] float32 -> [size, size(, C)]: bilinear with
-    half-pixel centres and edge clamping, no antialiasing
-    (``cv2.resize(INTER_LINEAR)`` on float32)."""
+def resize_bilinear(a: np.ndarray, size) -> np.ndarray:
+    """[H, W] or [H, W, C] float32 -> [size, size(, C)] (or [h, w(, C)]
+    for ``size`` = (h, w)): bilinear with half-pixel centres and edge
+    clamping, no antialiasing (``cv2.resize(INTER_LINEAR)`` on float32)."""
     t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     t = t[None, None] if t.ndim == 2 else t.permute(2, 0, 1)[None]
-    out = F.interpolate(t, size=(size, size), mode="bilinear",
+    hw = (size, size) if isinstance(size, int) else tuple(size)
+    out = F.interpolate(t, size=hw, mode="bilinear",
                         align_corners=False, antialias=False)[0]
     return (out[0] if a.ndim == 2 else out.permute(1, 2, 0)).numpy()
 

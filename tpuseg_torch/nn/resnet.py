@@ -10,6 +10,10 @@ style: BatchNorm2d (eps 1e-5, eval mode at inference), the stride on the
 3x3 conv, DCNv2 in place of the 3x3 conv of chosen blocks, attribute paths
 ``conv1``, ``bn1``, ``layers.{s}.{b}.conv1/bn1/conv2[.conv_offset_mask]/
 bn2/conv3/bn3/downsample.{0,1}``.
+
+:class:`ResNetTV`, Pose2Seg's: the same torchvision blocks under
+torchvision's own names (``conv1``, ``bn1``, ``layer1``..``layer4``), with
+an optional dilated C5.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ from tpuseg_torch.ops.deform_conv import ModulatedDeformConv2d
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
 
-def _conv(cin, cout, k, stride=1, padding=0):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
+def _conv(cin, cout, k, stride=1, padding=0, dilation=1):
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
+                     dilation=dilation, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -133,15 +138,16 @@ class ResNetHead(nn.Module):
 class BottleneckTV(nn.Module):
     """torchvision bottleneck: the stride on the 3x3 conv, which is a
     :class:`ModulatedDeformConv2d` (with a bias, as upstream's DCNv2) when
-    ``dcn``."""
+    ``dcn``, else a plain conv dilated by ``dilation`` (padded as much)."""
 
     def __init__(self, cin: int, mid: int, cout: int, stride: int,
-                 dcn: bool, eps: float):
+                 dcn: bool, eps: float, dilation: int = 1):
         super().__init__()
         self.conv1 = _conv(cin, mid, 1)
         self.bn1 = nn.BatchNorm2d(mid, eps=eps)
         self.conv2 = (ModulatedDeformConv2d(mid, mid, 3, stride=stride)
-                      if dcn else _conv(mid, mid, 3, stride=stride, padding=1))
+                      if dcn else _conv(mid, mid, 3, stride=stride,
+                                        padding=dilation, dilation=dilation))
         self.bn2 = nn.BatchNorm2d(mid, eps=eps)
         self.conv3 = _conv(mid, cout, 1)
         self.bn3 = nn.BatchNorm2d(cout, eps=eps)
@@ -173,18 +179,9 @@ class ResNetBackbone(nn.Module):
         super().__init__()
         self.conv1 = _conv(3, width, 7, stride=2, padding=3)
         self.bn1 = nn.BatchNorm2d(width, eps=eps)
-        layers, cin = [], width
-        for si, nblocks in enumerate(STAGE_BLOCKS[depth]):
-            mid = width * 2 ** si
-            cout = mid * 4
-            stride = 1 if si == 0 else 2
-            layers.append(nn.Sequential(*(
-                BottleneckTV(cin if bi == 0 else cout, mid, cout,
-                             stride if bi == 0 else 1,
-                             si in dcn_stages and bi % dcn_interval == 0, eps)
-                for bi in range(nblocks))))
-            cin = cout
-        self.layers = nn.ModuleList(layers)
+        self.layers = nn.ModuleList(_tv_stages(
+            depth, width, eps,
+            lambda si, bi: si in dcn_stages and bi % dcn_interval == 0))
         self.out_channels = tuple(width * 2 ** si * 4 for si in range(4))
 
     def forward(self, x: torch.Tensor) -> list:
@@ -193,5 +190,54 @@ class ResNetBackbone(nn.Module):
         feats = []
         for layer in self.layers:
             x = layer(x)
+            feats.append(x)
+        return feats
+
+
+def _tv_stages(depth: int, width: int, eps: float, dcn=lambda si, bi: False,
+               dilation_c5: int = 1) -> list:
+    """The four stages of torchvision bottlenecks: stage ``si`` has
+    ``width * 2**si`` bottleneck channels, the stride 2 on its first block
+    but the first stage's; ``dcn(si, bi)`` picks the deformable blocks;
+    with ``dilation_c5 > 1`` the last stage keeps stride 1 and dilates its
+    3x3 convs."""
+    stages, cin = [], width
+    for si, nblocks in enumerate(STAGE_BLOCKS[depth]):
+        mid = width * 2 ** si
+        cout = mid * 4
+        dilation = dilation_c5 if si == 3 else 1
+        stride = 1 if si == 0 or dilation > 1 else 2
+        stages.append(nn.Sequential(*(
+            BottleneckTV(cin if bi == 0 else cout, mid, cout,
+                         stride if bi == 0 else 1, dcn(si, bi), eps, dilation)
+            for bi in range(nblocks))))
+        cin = cout
+    return stages
+
+
+class ResNetTV(nn.Module):
+    """Pose2Seg's ResNet (upstream's resnet50FPN body, torchvision names):
+    x [B,3,H,W] -> [c2 /4, c3 /8, c4 /16, c5], BatchNorm2d (eps 1e-5), the
+    stride on the 3x3 conv. With ``dilation_c5 > 1`` layer4 keeps stride 1
+    (C5 at /16) and every one of its 3x3 convs is dilated by
+    ``dilation_c5``, as ``tpuseg/nn/resnet.py::forward`` runs the dilated
+    C5. Nothing is frozen: the BatchNorms train with the model."""
+
+    def __init__(self, depth: int = 50, width: int = 64,
+                 dilation_c5: int = 1, eps: float = 1e-5):
+        super().__init__()
+        self.conv1 = _conv(3, width, 7, stride=2, padding=3)
+        self.bn1 = nn.BatchNorm2d(width, eps=eps)
+        for si, stage in enumerate(_tv_stages(depth, width, eps,
+                                              dilation_c5=dilation_c5)):
+            self.add_module(f"layer{si + 1}", stage)
+        self.out_channels = tuple(width * 2 ** si * 4 for si in range(4))
+
+    def forward(self, x: torch.Tensor) -> list:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        feats = []
+        for si in range(4):
+            x = getattr(self, f"layer{si + 1}")(x)
             feats.append(x)
         return feats

@@ -764,3 +764,52 @@ def sample_points(feats: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     ``torch.channels_last`` (a copy unless they are already), the plain
     versions for CPU tensors."""
     return _SamplePoints.apply(feats, sy, sx, m)
+
+
+# ---------------------------------------------------------------------------
+# Pose2Seg's AffineAlign (port of ``tpuseg/ops/sampling.py::affine_grid`` and
+# ``affine_align``)
+# ---------------------------------------------------------------------------
+
+
+def affine_grid(theta: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``F.affine_grid(theta, (N, 1, out_h, out_w), align_corners=False)``'s
+    function: theta [N, 2, 3] -> grid [N, out_h, out_w, 2] of (x, y) in
+    [-1, 1]. The base grid is the JAX package's, ``(2 i + 1) / n - 1``,
+    divided on the host in theta's dtype (so a CUDA grid equals a CPU one),
+    and each coordinate is ``gx t0 + gy t1 + t2`` in that order."""
+    dt = theta.dtype
+
+    def base(n):
+        return ((torch.arange(n, dtype=dt) * 2.0 + 1.0) / n - 1.0).to(
+            theta.device)
+
+    gx = base(out_w)[None, None, :]
+    gy = base(out_h)[None, :, None]
+    t = theta[:, :, :, None, None]  # [N, 2, 3, 1, 1]
+    out = [gx * t[:, j, 0] + gy * t[:, j, 1] + t[:, j, 2] for j in range(2)]
+    return torch.stack(out, dim=-1)
+
+
+def affine_align(feats: torch.Tensor, theta: torch.Tensor,
+                 out_size: int) -> torch.Tensor:
+    """Pose2Seg's AffineAlign: feats [B, C, H, W]; theta [B, N, 2, 3]
+    (normalised, output grid -> input, one per person slot) -> the crops
+    [B, N, out, out, C], bilinear with zero padding and
+    ``align_corners=False``.
+
+    :func:`affine_grid`, the JAX package's conversion to pixels, then the
+    differentiable point sampler :func:`sample_points` over the S = N out^2
+    samples of each image, without modulation: the DCN sampling kernel
+    (``csrc/dcn_sample.cu``) forward and ``csrc/dcn_sample_bwd.cu``'s
+    d feats backward for CUDA tensors, whatever the map's size or dtype.
+    The JAX package's choice between its window kernel and its gathers
+    exists for the TPU's VMEM and is not ported; the gathers are the
+    semantics both follow."""
+    b, c, h, w = feats.shape
+    n = theta.shape[1]
+    grid = affine_grid(theta.reshape(b * n, 2, 3), out_size, out_size)
+    s = n * out_size * out_size
+    sx = (((grid[..., 0] + 1.0) * w - 1.0) * 0.5).reshape(b, s)
+    sy = (((grid[..., 1] + 1.0) * h - 1.0) * 0.5).reshape(b, s)
+    return sample_points(feats, sy, sx).reshape(b, n, out_size, out_size, c)

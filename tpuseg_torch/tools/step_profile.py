@@ -1,8 +1,7 @@
-"""Where a detectron model's training step, or its forward, spends the
-card's time.
+"""Where a model's training step, or its forward, spends the card's time.
 
     python3 -m tpuseg_torch.tools.step_profile [--tree DIR] [--steps 3]
-        [--model maskrcnn|c4|faster_rcnn|retinanet] [--forward]
+        [--model maskrcnn|c4|faster_rcnn|retinanet|pose2seg] [--forward]
 
 Builds the smoke's configuration from ``chip_smoke.py`` of the checkout
 ``--tree`` (default: this one; another checkout, for example the parent
@@ -11,10 +10,13 @@ card): Mask R-CNN R50-FPN (phase 9's weights) or, with ``--model``, one of
 phase 14's yamls and weights (``chip_smoke.family_state_dict``: its
 training init, or with ``--forward`` its calibrated inference weights);
 B = 2 on the 800x1344 canvas, synthetic images from the smoke's seeds,
-TF32 convolutions. Times four runs of 5 steps (or forwards) with CUDA
+TF32 convolutions. ``--model pose2seg`` is phase 15's: the calibrated
+synthetic weights, the forward at B = 1 with 16 people on the 512 canvas,
+the training step (with the ground-truth warp) at B = 4 over the smoke's
+keypoint dataset. Times four runs of 5 steps (or forwards) with CUDA
 events, then traces ``--steps`` of them with ``torch.profiler`` and
 prints, per step: the wall time, the device's busy time (the sum of its
-kernels' times) and idle share, the RoIAlign backward kernel's time and
+kernels' times) and idle share, the port's own kernels' time and
 launches, and the kernels that take the most time. Needs the card.
 """
 from __future__ import annotations
@@ -33,9 +35,10 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", default=3, type=int)
     ap.add_argument("--top", default=12, type=int)
     ap.add_argument("--model", default="maskrcnn",
-                    choices=("maskrcnn", "c4", "faster_rcnn", "retinanet"))
+                    choices=("maskrcnn", "c4", "faster_rcnn", "retinanet",
+                             "pose2seg"))
     ap.add_argument("--forward", action="store_true",
-                    help="profile a B = 2 forward instead of a step")
+                    help="profile a forward instead of a step")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     os.chdir(tree)
@@ -43,7 +46,6 @@ def main(argv=None) -> int:
     # the tree's own package, not the one this module was imported from
     for name in [m for m in sys.modules if m.split(".")[0] == "tpuseg_torch"]:
         del sys.modules[name]
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -53,36 +55,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the profile needs a GPU")
     dev = torch.device("cuda", 0)
-    if args.model == "maskrcnn":
-        cfg = S.M.MaskRCNNConfig()
-        model = S.M.build_model(cfg)
-        sd = S.synthetic_state_dict(model, S.SEED + 7)
-        sd["backbone.body.stem.bn1.running_var"] *= S.PIXEL_VAR
+    if args.model == "pose2seg":
+        step, shape = pose2seg_step(S, dev, args.forward)
     else:
-        _, cfg = S.ME.model_config_from_node(S.family_node(args.model))
-        model = S.ME.build_model(cfg)
-        sd, _ = S.family_state_dict(args.model, cfg, dev,
-                                    train=not args.forward)
-    model.load_state_dict(sd, strict=True)
-    model = model.to(dev)
-    data = S.SyntheticDataset(S.SEED + 7)
-    rng = np.random.default_rng(S.SEED + 8)
-    batch = S.TL.batch_to_device([S.TL.build_train_example(data, i, rng=rng)
-                                  for i in data.image_ids[:2]], dev)
-    if args.forward:
-        forward = S.ME.model_module(cfg).forward_inference
-        model.eval()
-
-        def step():
-            with torch.inference_mode():
-                forward(model, *batch[:2])
-    else:
-        opt = S.make_optimizer(model, 0.0025)
-        gen = torch.Generator(device=dev).manual_seed(S.SEED)
-
-        def step():
-            S.TL.train_step(model, opt, 0.0025 / 3, *batch, gen)
-
+        step, shape = detectron_step(S, dev, args.model, args.forward)
     runs = [S.cuda_time_ms(step, iters=5, warmup=2) for _ in range(4)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -97,21 +73,103 @@ def main(argv=None) -> int:
     kern = [k for k in prof.key_averages()
             if k.device_type == DeviceType.CUDA]
     busy = sum(k.self_device_time_total for k in kern) / 1e3 / args.steps
-    k3 = [k for k in kern if "roi_align_bwd_kernel" in k.key]
-    k3_ms = sum(k.self_device_time_total for k in k3) / 1e3 / args.steps
-    k3_n = sum(k.count for k in k3) / args.steps
+    ours = {k.key[k.key.index(n):].split("(")[0]: k for k in kern
+            for n in PORT_KERNELS if n in k.key}
     card = S.nvidia_smi()
     what = f"{args.model} {'forward' if args.forward else 'train step'}"
-    print(f"[{tree.name}] {what} B=2 800x1344, runs of 5: "
+    print(f"[{tree.name}] {what} {shape}, runs of 5: "
           f"{', '.join(f'{t:.3f}' for t in runs)} ms; traced "
           f"{args.steps} steps: wall {wall:.3f} ms per step, device busy "
-          f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f} % idle), "
-          f"roi_align_bwd {k3_ms:.4f} ms in {k3_n:g} launches [{card}]")
+          f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f} % idle) [{card}]")
+    for name, k in ours.items():
+        print(f"[{tree.name}]   the port's {name}: "
+              f"{k.self_device_time_total / 1e3 / args.steps:.4f} ms in "
+              f"{k.count / args.steps:g} launches per step")
     for k in sorted(kern, key=lambda k: -k.self_device_time_total)[:args.top]:
         ms = k.self_device_time_total / 1e3 / args.steps
         print(f"[{tree.name}]   {ms:9.4f} ms x{k.count / args.steps:6g}  "
               f"{k.key[:100]}")
     return 0
+
+
+# the hand-written kernels of tpuseg_torch/csrc, by name
+PORT_KERNELS = ("nms_mask_kernel", "nms_reduce_kernel", "roi_align_kernel",
+                "roi_align_bwd_kernel", "dcn_sample_kernel",
+                "dcn_sample_bwd_kernel")
+
+
+def detectron_step(S, dev, name: str, forward: bool) -> tuple:
+    """A detectron model's B = 2 step (or forward) -> (closure, shape)."""
+    import numpy as np
+    import torch
+
+    if name == "maskrcnn":
+        cfg = S.M.MaskRCNNConfig()
+        model = S.M.build_model(cfg)
+        sd = S.synthetic_state_dict(model, S.SEED + 7)
+        sd["backbone.body.stem.bn1.running_var"] *= S.PIXEL_VAR
+    else:
+        _, cfg = S.ME.model_config_from_node(S.family_node(name))
+        model = S.ME.build_model(cfg)
+        sd, _ = S.family_state_dict(name, cfg, dev, train=not forward)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(dev)
+    data = S.SyntheticDataset(S.SEED + 7)
+    rng = np.random.default_rng(S.SEED + 8)
+    batch = S.TL.batch_to_device([S.TL.build_train_example(data, i, rng=rng)
+                                  for i in data.image_ids[:2]], dev)
+    if forward:
+        fwd = S.ME.model_module(cfg).forward_inference
+        model.eval()
+
+        def step():
+            with torch.inference_mode():
+                fwd(model, *batch[:2])
+    else:
+        opt = S.make_optimizer(model, 0.0025)
+        gen = torch.Generator(device=dev).manual_seed(S.SEED)
+
+        def step():
+            S.TL.train_step(model, opt, 0.0025 / 3, *batch, gen)
+    return step, "B=2 800x1344"
+
+
+def pose2seg_step(S, dev, forward: bool) -> tuple:
+    """Phase 15's Pose2Seg forward (B = 1, 16 people) or training step
+    (B = 4, the ground-truth warp included) -> (closure, shape)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    cfg = S.P2S.Pose2SegConfig()
+    rng = np.random.default_rng(S.SEED + 31)
+    cases = [(S.textured_image(rng, h, w), S.template_people(rng, n, h, w))
+             for (h, w), n in S.P2S_IMAGES]
+    sd = S.synthetic_pose2seg_state_dict(cfg, S.SEED + 30)
+    S.calibrate_pose2seg(sd, cfg, *cases[0], dev)
+    pred = S.P2SE.Pose2SegPredictor(cfg, state_dict=sd, device=dev)
+    if forward:
+        x, inp = S.p2s_canvas(pred, *cases[1])
+        heads = (inp["theta"], inp["inv_theta"], inp["person_valid"],
+                 inp["skel"])
+
+        def step():
+            with torch.inference_mode():
+                pred.model(x, *heads)
+        return step, f"B=1 {cfg.max_people} people {cfg.input_size}"
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, ann = S.write_keypoint_dataset(Path(tmp), S.SEED + 32)
+        ds = S.CocoDetectionDataset(img_dir, ann, label_map=None)
+        batch = S.p2s_batch(ds, cfg, dev)
+    trainer = S.P2SL.Pose2SegTrainer(pred.model)
+
+    def step():
+        gt = (S.P2SL.warp_gt_to_aligned(batch["gt_masks"], batch["theta"],
+                                        cfg.align_size) > 0.5).float()
+        trainer.train_step(batch["images"], batch["theta"], batch["valid"],
+                           gt, 0, skel=batch["skel"])
+    return step, f"B={S.P2S_BATCH} {cfg.input_size}"
 
 
 if __name__ == "__main__":

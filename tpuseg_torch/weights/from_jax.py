@@ -1,10 +1,11 @@
 """The JAX package's param trees -> the port's state_dicts (Mask R-CNN and
-Faster R-CNN FPN and C4, RetinaNet, YOLACT).
+Faster R-CNN FPN and C4, RetinaNet, YOLACT, Pose2Seg).
 
 The inverses of ``tpuseg/weights/detectron_map.py::from_torch_state``,
 ``tpuseg/models/maskrcnn_c4.py::from_torch_state``,
-``tpuseg/models/retinanet.py::from_torch_state`` and
-``tpuseg/weights/yolact_map.py::from_torch_state``: conv kernels HWIO ->
+``tpuseg/models/retinanet.py::from_torch_state``,
+``tpuseg/weights/yolact_map.py::from_torch_state`` and
+``tpuseg/engine/pose2seg_engine.py::pose2seg_from_torch``: conv kernels HWIO ->
 OIHW, linear weights [in, out] -> [out, in], fc6's rows back from the NHWC
 (H, W, C) flattening to upstream's (C, H, W), and the deconv kernel
 [kh, kw, in, out] -> [in, out, kh, kw]. Takes numpy arrays (``np.asarray``
@@ -37,16 +38,17 @@ def _linear(sd: dict, name: str, p: dict, weight=None) -> None:
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
-def _stage(sd: dict, prefix: str, blocks: list) -> None:
-    """A detectron ResNet stage's bottlenecks under ``prefix``."""
+def _stage(sd: dict, prefix: str, blocks: list, bn=_bn) -> None:
+    """A ResNet stage's bottlenecks under ``prefix``; ``bn`` writes each
+    norm (FrozenBN's four tensors, or BatchNorm2d's with its counter)."""
     for bi, blk in enumerate(blocks):
         base = f"{prefix}.{bi}"
         for i in (1, 2, 3):
             _conv(sd, f"{base}.conv{i}", blk[f"conv{i}"])
-            _bn(sd, f"{base}.bn{i}", blk[f"bn{i}"])
+            bn(sd, f"{base}.bn{i}", blk[f"bn{i}"])
         if blk.get("downsample") is not None:
             _conv(sd, f"{base}.downsample.0", blk["downsample"]["conv"])
-            _bn(sd, f"{base}.downsample.1", blk["downsample"]["bn"])
+            bn(sd, f"{base}.downsample.1", blk["downsample"]["bn"])
 
 
 def _body(sd: dict, bb: dict) -> None:
@@ -193,4 +195,27 @@ def yolact_state_dict_from_jax(params: dict, cfg) -> dict:
             _conv(sd, f"maskiou_net.maskiou_net.{2 * i}",
                   params["maskiou"][f"conv{i}"])
         _conv(sd, "maskiou_net.maskiou_net.10", params["maskiou"]["conv_last"])
+    return sd
+
+
+def pose2seg_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's Pose2Seg tree (``pose2seg.init_params`` /
+    ``pose2seg_from_torch``; numpy leaves, any widths) -> the port's
+    :class:`~tpuseg_torch.models.pose2seg.Pose2Seg` state_dict, upstream's
+    keys: ``backbone.{conv1,bn1,layer1-4,toplayer,latlayer1-3,
+    smooth1-3}.*``, ``segnet.{conv1,bn1,layers.i,conv2}.*``."""
+    sd = {}
+    bb = params["backbone"]
+    _conv(sd, "backbone.conv1", bb["stem"]["conv"])
+    _bn_tracked(sd, "backbone.bn1", bb["stem"]["bn"])
+    for si in range(4):
+        _stage(sd, f"backbone.layer{si + 1}", bb[f"layer{si + 1}"],
+               bn=_bn_tracked)
+    for name, p in params["fpn"].items():
+        _conv(sd, f"backbone.{name}", p)
+    seg = params["seg"]
+    _conv(sd, "segnet.conv1", seg["conv1"])
+    _bn_tracked(sd, "segnet.bn1", seg["bn1"])
+    _stage(sd, "segnet.layers", seg["units"], bn=_bn_tracked)
+    _conv(sd, "segnet.conv2", seg["classifier"])
     return sd
