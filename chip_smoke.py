@@ -116,8 +116,9 @@ Phases, one line each; any failure raises and exits non-zero:
      within 1e-5 max|ref|); 3 Pose2SegTrainer steps at B = 4 with the
      ground-truth warp over a keypoint dataset the smoke writes (2 K4 + 1
      K4c per step, finite losses, every parameter moved, every running
-     statistic updated) and one step kernels vs plain (as phase 11); the
-     kernels at the path's own inputs (K4 bit for bit in f32 and bf16 and
+     statistic updated) and one step kernels vs plain (phase 9's gate,
+     its atol raised to ten times the plain runs' own spread for the
+     gradients, named, where that is larger); the kernels at the path's own inputs (K4 bit for bit in f32 and bf16 and
      against grid_sample, K4 at the warp's C = 1, K4c with d feats only);
      pose2seg_test over the 8 images through both paths (stats equal or
      within 1e-3 at equal counts) and pose2seg_train for 5 steps; timings
@@ -3102,6 +3103,72 @@ def check_p2s_masks(out: dict, n: int, h: int, w: int, what: str) -> str:
     return f"{share.min():.3f}-{share.max():.3f}"
 
 
+def compare_p2s_step(k1: tuple, k2: tuple, *plain: tuple) -> str:
+    """Pose2Seg's train-mode step, kernels (two runs) vs plain (``plain``:
+    three runs): losses rtol 1e-6, and every gradient of the first kernel
+    run within phase 9's elementwise gate of the first plain run: rtol
+    1e-4 and atol 1e-6 max|g|, but where the plain runs themselves differ
+    by more, in this run, the atol is ten times their largest elementwise
+    difference (the first run against each other one). The whole model
+    trains in train mode: every gradient carries the rounding of the
+    atomic adds in AffineAlign's backward (K4c's; index_add_'s on the
+    plain path), whose order changes from run to run, and train-mode
+    BatchNorm's backward, a difference of nearly equal per-channel sums,
+    magnifies it. The gradients whose atol was raised are named, with
+    their count per top-level module."""
+    (l1, g1), (l2, g2), (lp, gp) = k1, k2, plain[0]
+    for k, w in lp.items():
+        for got in (l1, l2):
+            if not abs(got[k] - w) <= 1e-6 * abs(w):
+                raise AssertionError(f"train-mode loss {k}: kernels "
+                                     f"{got[k]!r}, plain {w!r}")
+    if sorted(g1) != sorted(gp):
+        raise AssertionError("the two paths give gradients to other parameters")
+    raised, bad, kp, kk, pp, strict, margin = {}, [], {}, {}, {}, [], {}
+    for n, w in gp.items():
+        scale = float(w.abs().max())
+        spread = max(float((g[n] - w).abs().max()) for _, g in plain[1:])
+        atol = max(1e-6 * scale, 10 * spread)
+        err = (g1[n] - w).abs()
+        if atol > 1e-6 * scale:
+            raised[n] = atol / scale
+            margin[n] = float(err.max()) / spread
+        if bool((err > 1e-4 * w.abs() + 1e-6 * scale).any()):
+            strict.append(n)
+        excess = float((err - (1e-4 * w.abs() + atol)).max())
+        if excess > 0:
+            bad.append((excess / scale, n, float(err.max()) / scale,
+                        atol / scale))
+        if scale:
+            kp[n] = float(err.max()) / scale
+            kk[n] = float((g2[n] - g1[n]).abs().max()) / scale
+            pp[n] = spread / scale
+    if bad:
+        raise AssertionError(
+            "train-mode gradients past rtol 1e-4 / atol (excess, largest "
+            "error and atol, all of max|g|): " + "; ".join(
+                f"{n} {e:.3g} {m:.3g} {a:.3g}"
+                for e, n, m, a in sorted(bad)[::-1][:3]))
+    worst = max(kp, key=kp.get)
+    top = {}
+    for n in gp:
+        group = top.setdefault(n.split(".")[0], [0, 0])
+        group[0] += n in raised
+        group[1] += 1
+    most = max(margin, key=margin.get) if margin else None
+    return (f"losses equal to rtol 1e-6 in both kernel runs; {len(gp)} "
+            f"gradients within rtol 1e-4 / atol 1e-6 max|g| of the plain "
+            f"run, or ten times the plain runs' own spread where that is "
+            f"larger: largest error {kp[worst]:.3g} of max|g| ({worst}); "
+            f"largest spread kernels vs kernels {max(kk.values()):.3g}, plain "
+            f"vs plain {max(pp.values()):.3g}; {len(strict)} past the gate "
+            f"alone; atol raised for {len(raised)} ("
+            + ", ".join(f"{g} {r} of {t}" for g, (r, t) in top.items())
+            + (f"), up to {max(raised.values()):.3g} of max|g|, the largest "
+               f"error {margin[most]:.3g} times the plain spread ({most}): "
+               + ", ".join(sorted(raised)) if raised else ")"))
+
+
 def p2s_step_grads(trainer, batch: dict, gt_aligned) -> tuple:
     """The loss and parameter gradients of one training forward + backward
     (train-mode BatchNorm; no update)."""
@@ -3315,14 +3382,13 @@ def phase_pose2seg(dev, tmp: Path, card: str) -> dict:
         return (P2SL.warp_gt_to_aligned(batch["gt_masks"], batch["theta"],
                                         cfg.align_size) > 0.5).float()
 
-    def step(it=0):
+    def step():
         return trainer.train_step(batch["images"], batch["theta"],
-                                  batch["valid"], warp(), it,
-                                  skel=batch["skel"])
+                                  batch["valid"], warp(), skel=batch["skel"])
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    losses = [float(step(it)) for it in range(P2S_TRAIN_STEPS)]
+    losses = [float(step()) for _ in range(P2S_TRAIN_STEPS)]
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
     want = {k: P2S_TRAIN_STEPS * v for k, v in P2S_PER_STEP.items()}
@@ -3352,14 +3418,9 @@ def phase_pose2seg(dev, tmp: Path, card: str) -> dict:
                            lambda: p2s_step_grads(trainer, batch, gt_aligned))
     log(f"[15 pose2seg] the kernels at Pose2Seg's inputs: "
         f"{p2s_kernels(args, warp_args, bwd_args)}")
-    # one step on one batch, kernels vs plain, TF32 off and deterministic
-    # cuDNN, two runs each: held as phase 11 holds YOLACT++'s train-mode
-    # step. The whole model trains in train mode, and the gradient of a
-    # bias in front of AffineAlign (latlayer*, smooth3) is a per-channel
-    # sum that segnet's train-mode BatchNorm nearly cancels, which
-    # magnifies the rounding of the atomic adds (K4c's, and index_add_'s on
-    # the plain path): phase 9's elementwise rtol 1e-4 / atol 1e-6 max|g|
-    # failed there by 3.2e-5 max|g| (smooth3.bias, measured on an H100)
+    # one step on one batch, kernels (two runs) vs plain (three runs), TF32
+    # off and deterministic cuDNN: phase 9's gate, its atol raised where
+    # the plain runs' own spread is larger (compare_p2s_step)
     with exact_convs():
         kernels.reset_launch_counts()
         runs = [p2s_step_grads(trainer, batch, gt_aligned)]
@@ -3367,14 +3428,14 @@ def phase_pose2seg(dev, tmp: Path, card: str) -> dict:
         runs.append(p2s_step_grads(trainer, batch, gt_aligned))
         with kernels.force_plain():
             runs += [p2s_step_grads(trainer, batch, gt_aligned)
-                     for _ in range(2)]
+                     for _ in range(3)]
         torch.cuda.synchronize()
     if path_counts != {**P2S_PER_STEP, "dcn_sample": 1}:
         raise AssertionError(f"Pose2Seg kernel-path step launched "
                              f"{path_counts}")
     log(f"[15 pose2seg] one step, kernels vs plain (cudnn.allow_tf32 False, "
         f"cudnn.deterministic True), train-mode BatchNorm: "
-        f"{compare_train_mode(*runs)}")
+        f"{compare_p2s_step(*runs)}")
 
     # the two CLIs on the card, over the keypoint dataset
     def run(main, argv):

@@ -73,7 +73,7 @@ def steps():
     tt = TL.Pose2SegTrainer(model)
     t = [torch.from_numpy(a) for a in (images, theta, valid, gt, skel)]
     t[0] = t[0].permute(0, 3, 1, 2)
-    loss = tt.train_step(*t[:4], 0, skel=t[4])
+    loss = tt.train_step(*t[:4], skel=t[4])
     got = {"loss": float(loss), "before": before,
            "after": model.state_dict(),
            "grads": {n: p.grad.clone() for n, p in model.named_parameters()}}
@@ -143,4 +143,4 @@ def test_step_needs_skeleton_features():
     with pytest.raises(ValueError, match="skel"):
         tt.train_step(torch.zeros(1, 3, 128, 128), torch.zeros(1, 2, 2, 3),
                       torch.ones(1, 2, dtype=torch.bool),
-                      torch.zeros(1, 2, 32, 32), 0)
+                      torch.zeros(1, 2, 32, 32))

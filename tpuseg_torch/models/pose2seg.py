@@ -37,7 +37,6 @@ from tpuseg_torch.ops.sampling import affine_align, affine_grid
 @dataclass(frozen=True)
 class Pose2SegConfig:
     input_size: int = 512
-    feature_stride: int = 4  # P2 of the FPN
     align_size: int = 64
     max_people: int = 16
     num_keypoints: int = 17

@@ -47,18 +47,15 @@ def warp_gt_to_aligned(gt_masks: torch.Tensor, theta: torch.Tensor,
 
 class Pose2SegTrainer:
     """One SGD step of a :class:`~tpuseg_torch.models.pose2seg.Pose2Seg`
-    in train mode on aligned ground truth. ``lr_fn(it)`` gives the step's
-    learning rate (upstream's constant 2e-4 by default)."""
+    in train mode on aligned ground truth, at upstream's constant learning
+    rate."""
 
-    def __init__(self, model: torch.nn.Module, lr_fn=None,
-                 momentum: float = MOMENTUM,
-                 weight_decay: float = WEIGHT_DECAY):
+    def __init__(self, model: torch.nn.Module):
         self.model = model
         self.cfg = model.cfg
-        self.lr_fn = lr_fn or (lambda it: BASE_LR)
         self.optimizer = torch.optim.SGD(
-            model.parameters(), lr=self.lr_fn(0), momentum=momentum,
-            weight_decay=weight_decay)
+            model.parameters(), lr=BASE_LR, momentum=MOMENTUM,
+            weight_decay=WEIGHT_DECAY)
         # every parameter steps, as the JAX package's SGD steps every leaf:
         # smooth1 and smooth2, which P2 does not use, get a zero gradient
         # and decay (torch's SGD would skip a parameter without gradient)
@@ -79,12 +76,10 @@ class Pose2SegTrainer:
         logits = self.model.heads(self.model.backbone(images), theta, skel)
         return aligned_ce_loss(logits, gt_aligned, valid)
 
-    def train_step(self, images, theta, valid, gt_aligned, it: int,
+    def train_step(self, images, theta, valid, gt_aligned,
                    skel=None) -> torch.Tensor:
-        """One step at ``lr_fn(it)`` -> the loss before it (detached)."""
+        """One step -> the loss before it (detached)."""
         loss = self.loss(images, theta, valid, gt_aligned, skel)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_fn(it)
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
         self.optimizer.step()

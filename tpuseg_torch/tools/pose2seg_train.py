@@ -98,7 +98,7 @@ def main(argv=None) -> list:
             gt_aligned = (warp_gt_to_aligned(t["gt_masks"], t["theta"],
                                              cfg.align_size) > 0.5).float()
             loss = trainer.train_step(t["images"], t["theta"], t["valid"],
-                                      gt_aligned, len(losses), skel=t["skel"])
+                                      gt_aligned, skel=t["skel"])
             losses.append(float(loss))
             if len(losses) % 20 == 0:
                 print(f"iter {len(losses)}: loss {losses[-1]:.4f}",

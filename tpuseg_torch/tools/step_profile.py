@@ -70,8 +70,13 @@ def main(argv=None) -> int:
         stop.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(stop) / args.steps
-    kern = [k for k in prof.key_averages()
-            if k.device_type == DeviceType.CUDA]
+    rows = prof.key_averages()
+    # a device row named as a host row is the profiler's span of a
+    # record_function range (Optimizer.step, ...), over kernels that are
+    # rows of their own: only the kernels' rows are the device's work
+    host = {k.key for k in rows if k.device_type == DeviceType.CPU}
+    kern = [k for k in rows
+            if k.device_type == DeviceType.CUDA and k.key not in host]
     busy = sum(k.self_device_time_total for k in kern) / 1e3 / args.steps
     ours = {k.key[k.key.index(n):].split("(")[0]: k for k in kern
             for n in PORT_KERNELS if n in k.key}
@@ -168,7 +173,7 @@ def pose2seg_step(S, dev, forward: bool) -> tuple:
         gt = (S.P2SL.warp_gt_to_aligned(batch["gt_masks"], batch["theta"],
                                         cfg.align_size) > 0.5).float()
         trainer.train_step(batch["images"], batch["theta"], batch["valid"],
-                           gt, 0, skel=batch["skel"])
+                           gt, skel=batch["skel"])
     return step, f"B={S.P2S_BATCH} {cfg.input_size}"
 
 
