@@ -125,6 +125,27 @@ Phases, one line each; any failure raises and exits non-zero:
      (K4 and K4c at its shapes against plain, bound, grid_sample; the
      forward at B = 1 in f32 and bf16; run_on_image; the step at B = 4;
      the CLIs).
+  16. YOLOv3-416 (DarkNet-53, 80 classes; a synthetic yolov3.weights from
+     a numpy seed, read by the port's darknet reader) and ViT-B/16
+     (synthetic jeonsworld-keyed .pth and google-research .npz of the same
+     numpy weights, read by load_vit_weights): YoloPredictor in f32 and
+     bf16 at B = 1 and 8 (one K1 launch a batch, every K1 call equal to
+     the plain version on its inputs bit for bit, sane detections); a
+     B = 8 batch through the kernels and the plain versions detection for
+     detection and the raw head maps against the same model on the CPU
+     (TF32 off, 1e-4 max|ref|); evaluate_coco_boxes over phase 13's
+     dataset through both paths (stats equal or within 1e-3 at equal
+     counts); 3 YoloTrainer steps at B = 8 on the 832 canvas (no launch,
+     finite losses, every parameter moved, every running statistic
+     updated); yolo_detect, yolo_eval (8 images) and yolo_train (5 steps,
+     its npz read back); ViTClassifier.run_on_image and forwards at B = 1
+     and 32 (no launch), the logits against the CPU's (TF32 off, 1e-4
+     max|ref|), 3 ViTTrainer steps at B = 32 (finite, every parameter
+     moved), vit_infer and vit_train (5 steps, its npz read back);
+     timings (YOLOv3's device pipeline at B = 1 and 8 in f32 and bf16
+     through both paths and run_batch, its step at B = 8, K1 at [8, 1000]
+     class-aware against plain and its bound, ViT-B/16's forward at B = 1
+     and 32 and its step at B = 32, the CLIs).
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -152,14 +173,18 @@ from tpuseg_torch.configs.presets import (yolact_loss_config,
 from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
 from tpuseg_torch.data.native_loader import NativeImageLoader
 from tpuseg_torch.data.prefetch import DevicePrefetcher
+from tpuseg_torch.engine import classify as VC
 from tpuseg_torch.engine import detectron_train_loop as TL
 from tpuseg_torch.engine import maskrcnn_engine as ME
 from tpuseg_torch.engine import pose2seg_engine as P2SE
 from tpuseg_torch.engine import yolact_engine as YE
+from tpuseg_torch.engine import vit_train as VT
 from tpuseg_torch.engine import yolact_train_loop as YTL
+from tpuseg_torch.engine import yolo_engine as YOE
 from tpuseg_torch.engine.maskrcnn_engine import (COCO_CATEGORY_IDS,
                                                  MaskRCNNPredictor,
                                                  preprocess_image_bgr)
+from tpuseg_torch.engine.config import get_config
 from tpuseg_torch.engine.trainer import (ckpt_path, make_optimizer,
                                          make_yolact_optimizer,
                                          yolact_lr_schedule)
@@ -175,10 +200,13 @@ from tpuseg_torch.models import pose2seg_loss as P2SL
 from tpuseg_torch.models import retinanet as RN
 from tpuseg_torch.models import yolact as YM
 from tpuseg_torch.models import yolact_loss as YLOSS
+from tpuseg_torch.models import yolov3 as Y3
+from tpuseg_torch.nn import vit as VIT
 from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops import sampling
 from tpuseg_torch.ops.deform_conv import dcn_sample_coords, deform_conv2d
+from tpuseg_torch.ops.preprocess import vit_preprocess as VIT_PRE
 from tpuseg_torch.ops.preprocess import yolact_preprocess
 
 SEED = 0
@@ -2681,7 +2709,8 @@ def family_train(name: str, dev, tmp: Path) -> dict:
             "calls": calls}
 
 
-def time_nms_call(call, what: str, card: str, iters: int = 10) -> tuple:
+def time_nms_call(call, what: str, card: str, iters: int = 10,
+                  tag: str = "14 timing") -> tuple:
     """A recorded NMS call timed against its plain version and its bound,
     the kernel launch alone too -> (its label, the (ms, plain, bound, by,
     None, alone) of phase 12's NMS rows)."""
@@ -2705,7 +2734,7 @@ def time_nms_call(call, what: str, card: str, iters: int = 10) -> tuple:
     valid = kwargs["valid"]
     t = (k, p) + nms_bound(boxes, scores, valid, classes, thr) + (None, alone)
     label = f"{what}: {nms_call_label(name, args, kwargs)}"
-    log(f"[14 timing] nms {label} ({int(valid.sum())} valid): kernel "
+    log(f"[{tag}] nms {label} ({int(valid.sum())} valid): kernel "
         f"{k:.4f} ms (the kernel launch alone {alone:.4f} ms), plain "
         f"{p:.4f} ms, bound {t[2]:.4g} ms by {t[3]} [{card}]")
     return label, t
@@ -3608,6 +3637,528 @@ def time_pose2seg(preds, cases, trainer, step, args, warp_args, bwd_args,
     return times
 
 
+# ---------------------------------------------------------------------------
+# phase 16: YOLOv3 (DarkNet-53) and ViT-B/16
+# ---------------------------------------------------------------------------
+
+YOLO_BATCH = 8
+YOLO_TRAIN_STEPS = 3
+# the inference images (h, w), ragged on one canvas
+YOLO_IMAGES = ((480, 640), (640, 480), (500, 500), (375, 500), (427, 640),
+               (640, 427), (333, 500), (480, 360))
+YOLO_CLI_EVAL_IMAGES = 8
+VIT_CONFIG = "vit_b16_config"
+VIT_BATCH = 32
+VIT_TRAIN_STEPS = 3
+# a ViT step's learning rate: the smoke's three steps and the CLI's first
+# five are past no warm-up
+VIT_LR = 3e-2
+
+
+def write_darknet_weights(path: Path, cfg, seed: int) -> None:
+    """A yolov3.weights file for ``cfg``'s model from a numpy seed, in
+    darknet's cfg order (``YoloV3.layers``): BatchNorm shifts and running
+    means N(0, 0.05^2), scales and running variances U(0.7, 1.3), conv
+    weights N(0, 1/fan_in); the heads' output convs N(0, 3e-3^2) with
+    biases N(0, 0.02^2), so that box sizes stay near their anchors and the
+    scores spread (tests/test_cross_parity_yolov3.py's recipe)."""
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        model = Y3.YoloV3(cfg)
+    with open(path, "wb") as f:
+        f.write(np.asarray([0, 2, 0], np.int32).tobytes())
+        f.write(np.asarray([0], np.int64).tobytes())
+        for layer, has_bn in model.layers():
+            w = layer.conv.weight if has_bn else layer.weight
+            shape, cout = tuple(w.shape), w.shape[0]
+            if has_bn:
+                parts = [rng.normal(0, 0.05, cout), rng.uniform(0.7, 1.3, cout),
+                         rng.normal(0, 0.05, cout), rng.uniform(0.7, 1.3, cout),
+                         rng.standard_normal(shape) / np.sqrt(w[0].numel())]
+            else:
+                parts = [rng.normal(0, 0.02, cout),
+                         rng.standard_normal(shape) * 3e-3]
+            for p in parts:
+                f.write(p.astype(np.float32).tobytes())
+
+
+def yolo_canvas(imgs: list) -> tuple:
+    """uint8 RGB images -> (the batch zero-padded to one canvas, its
+    largest height and width rounded up to 32, and each (h, w))."""
+    h = -(-max(i.shape[0] for i in imgs) // 32) * 32
+    w = -(-max(i.shape[1] for i in imgs) // 32) * 32
+    batch = np.zeros((len(imgs), h, w, 3), np.uint8)
+    for j, img in enumerate(imgs):
+        batch[j, :img.shape[0], :img.shape[1]] = img
+    return batch, np.asarray([i.shape[:2] for i in imgs], np.int32)
+
+
+def check_yolo(dets: dict, b: int, cfg) -> list:
+    """Sane padded detections of b images -> each image's count."""
+    valid = dets["valid"]
+    assert valid.shape == (b, cfg.max_det), valid.shape
+    counts = [int(v.sum()) for v in valid]
+    if not all(counts):
+        raise AssertionError(f"an image without detections: {counts}")
+    boxes, scores = dets["boxes"][valid], dets["scores"][valid]
+    classes = dets["classes"][valid]
+    if not (np.isfinite(boxes).all() and (boxes[:, 2:] > boxes[:, :2]).all()
+            and ((scores > cfg.conf_thresh) & (scores <= 1)).all()
+            and ((classes >= 0) & (classes < cfg.num_classes)).all()):
+        raise AssertionError(
+            f"YOLOv3 detections out of range: boxes {boxes.min(0)} to "
+            f"{boxes.max(0)}, scores {scores.min()} to {scores.max()}, "
+            f"classes {classes.min()} to {classes.max()}")
+    return counts
+
+
+def moved(model, before: dict) -> tuple:
+    """(parameters that did not move, running statistics not updated)."""
+    after = model.state_dict()
+    still = [n for n, _ in model.named_parameters()
+             if torch.equal(after[n], before[n])]
+    stale = [k for k in after if k.endswith(("running_mean", "running_var"))
+             and torch.equal(after[k], before[k])]
+    return still, stale
+
+
+def run_cli(main, argv, cls=None) -> tuple:
+    """A CLI's main(argv) on the card -> (its result, its launches, wall
+    seconds, the start of each cls.train_step call, its stdout)."""
+    kernels.reset_launch_counts()
+    with quiet() as buf, (step_starts(cls) if cls else
+                          contextlib.nullcontext([])) as starts:
+        t0 = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return result, kernels.launch_counts(), wall, starts, buf.getvalue()
+
+
+def phase_yolo(dev, tmp: Path, card: str) -> dict:
+    """Phase 16, YOLOv3-416 at full width (DarkNet-53, 80 classes), weights
+    from a numpy seed through the darknet reader: inference in f32 and
+    bf16 at B = 1 and 8 (one K1 a batch, each call equal to the plain
+    version bit for bit), kernels vs plain and card vs CPU, the COCO
+    evaluation through both paths, training, the three CLIs, timings."""
+    from tpuseg_torch.tools import yolo_detect, yolo_eval, yolo_train
+
+    cfg = Y3.YoloV3Config()
+    weights = tmp / "yolov3.weights"
+    write_darknet_weights(weights, cfg, SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    imgs = [textured_image(rng, h, w) for h, w in YOLO_IMAGES]
+    out = {"counts": {}, "times": {}, "nms": {}}
+    preds, calls = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        pred = YOE.YoloPredictor(cfg, weights=str(weights),
+                                 batch_size=YOLO_BATCH, dtype=dt, device=dev)
+        preds[dt], lines = pred, []
+        for b in (1, YOLO_BATCH):
+            batch, hw = yolo_canvas(imgs[:b])
+            kernels.reset_launch_counts()
+            with recording_nms() as rec:
+                dets = pred.run_batch(batch, hw)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+            if got != {**{k: 0 for k in got}, "nms": 1} or len(rec) != 1:
+                raise AssertionError(f"YOLOv3 {dt} B={b} launched {got} in "
+                                     f"{len(rec)} NMS calls, want one K1")
+            counts = check_yolo(dets, b, cfg)
+            same = check_nms_calls(rec)
+            calls[dt, b] = rec[0]
+            out["counts"][f"yolov3_inference_{str(dt)[6:]}_B{b}"] = got
+            lines.append(f"B = {b} on {batch.shape[1]}x{batch.shape[2]}: "
+                         f"launches {compact(got)}, K1 equal to plain bit "
+                         f"for bit ({same}), detections {counts}")
+        log(f"[16 yolov3] YoloPredictor {str(dt)[6:]} (yolov3.weights through "
+            f"the darknet reader): " + "; ".join(lines))
+
+    # kernels vs plain on one batch, and the card against the CPU, TF32 off
+    pred = preds[torch.float32]
+    batch, hw = yolo_canvas(imgs)
+    x8 = torch.from_numpy(batch).to(dev)
+    hw8 = torch.from_numpy(hw).to(dev)
+    with torch.inference_mode(), exact_convs():
+        got = pred.detect(x8, hw8)
+        with kernels.force_plain():
+            want = pred.detect(x8, hw8)
+        heads = compare_heads(got, want)
+        x = YOE.letterbox_preprocess(x8[:2], hw8[:2], size=cfg.input_size)
+        card_maps = [o.cpu() for o in pred.model(x)]
+    log(f"[16 yolov3] B = {YOLO_BATCH}, kernels vs plain (cudnn.allow_tf32 "
+        f"False, deterministic cuDNN): {heads}")
+    cpu = YOE.build_yolo(cfg, None, str(weights)).eval()
+    with torch.inference_mode():
+        cpu_maps = cpu(x.cpu())
+    errs = []
+    for g, w in zip(card_maps, cpu_maps):
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"YOLOv3 head map {tuple(w.shape)}: card vs "
+                                 f"CPU {err:.3g} of max|ref|")
+        errs.append(f"{err:.3g}")
+    del cpu
+    log(f"[16 yolov3] raw head maps at B = 2, the card (TF32 off) against "
+        f"the same model on the CPU: largest error {', '.join(errs)} of "
+        f"max|ref| (limit 1e-4)")
+
+    # COCO evaluation over phase 13's dataset, kernels vs plain
+    img_dir, ann, _ = write_coco_dataset(tmp / "coco", SEED + 20)
+    ds = CocoDetectionDataset(img_dir, ann)
+    evals, found = {}, []
+    orig = YOE.YoloPredictor.run_batch
+
+    def counted(self, *a):
+        res = orig(self, *a)
+        found[-1] += int(res["valid"].sum())
+        return res
+
+    YOE.YoloPredictor.run_batch = counted
+    try:
+        for plain in (False, True):
+            found.append(0)
+            kernels.reset_launch_counts()
+            with quiet(), exact_convs(), (kernels.force_plain() if plain
+                                          else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                stats = YOE.evaluate_coco_boxes(pred, ds, progress=False)
+                wall = time.perf_counter() - t0
+            evals[plain] = ({"stats": stats}, kernels.launch_counts(), wall)
+    finally:
+        YOE.YoloPredictor.run_batch = orig
+    (stats, counts, wall), plain_stats = evals[False], evals[True][0]
+    batches = -(-len(ds) // YOLO_BATCH)
+    if counts != {**{k: 0 for k in counts}, "nms": batches}:
+        raise AssertionError(f"evaluate_coco_boxes launched {counts}")
+    same = agree(stats, plain_stats, found[0], found[1],
+                 "evaluate_coco_boxes")
+    out["counts"]["yolov3_evaluate_coco_boxes"] = counts
+    out["times"]["yolov3 evaluate_coco_boxes img/s"] = (len(ds) / wall,)
+    log(f"[16 yolov3] evaluate_coco_boxes over {len(ds)} images at B = "
+        f"{YOLO_BATCH}: launches {compact(counts)}, bbox AP "
+        f"{stats['stats'][0]:.4f}; kernels vs plain (TF32 off, "
+        f"deterministic cuDNN) {same}; {len(ds) / wall:.2f} img/s [{card}]")
+
+    # training: YOLO_TRAIN_STEPS steps at B = 8 on the 832 canvas
+    tds = CocoDetectionDataset(img_dir, ann, include_crowd=False)
+    trainer = YOE.YoloTrainer(cfg, weights=str(weights), device=dev)
+    host = yolo_train.train_batch(tds, tds.image_ids[:YOLO_BATCH],
+                                  cfg.input_size)
+    tb = [torch.from_numpy(a).to(dev) for a in host]
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    # past the 1000-step burn-in: the step at the base lr, 1e-3
+    losses = [trainer.train_step(*tb, YOE.BURN_IN + i)
+              for i in range(YOLO_TRAIN_STEPS)]
+    totals = [float(v["total"]) for v in losses]
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    still, stale = moved(trainer.model, before)
+    if any(counts.values()) or not np.isfinite(totals).all() or still or stale:
+        raise AssertionError(f"YOLOv3 training launched {counts}; losses "
+                             f"{totals}; still {still[:5]}; stale {stale[:5]}")
+    out["counts"]["yolov3_training"] = counts
+    log(f"[16 yolov3] YoloTrainer {YOLO_TRAIN_STEPS} steps at B = "
+        f"{YOLO_BATCH} on the {tb[0].shape[1]}x{tb[0].shape[2]} canvas "
+        f"({int((tb[3] >= 0).sum())} ground truths), f32 with TF32 "
+        f"convolutions, train-mode BatchNorm, in {seconds:.1f} s: launches "
+        f"{compact(counts)}; total losses {[round(v, 4) for v in totals]} "
+        f"(last: " + ", ".join(f"{k} {float(v):.4f}" for k, v in
+                                losses[-1].items()) + f"); all "
+        f"{len(list(trainer.model.parameters()))} parameters moved, "
+        f"{2 * sum(isinstance(m, torch.nn.BatchNorm2d) for m in trainer.model.modules())}"
+        " running statistics updated")
+
+    # the three CLIs on the card
+    img0 = str(Path(img_dir) / "000000000001.png")
+    res, counts, wall, _, text = run_cli(yolo_detect.main, [
+        "--image", img0, "--weights", str(weights), "--conf_thres", "0.1",
+        "--out", str(tmp / "yolo_detect.png")])
+    if counts != {**{k: 0 for k in counts}, "nms": 1} or not len(
+            res["scores"]) or not (tmp / "yolo_detect.png").exists():
+        raise AssertionError(f"yolo_detect launched {counts}: {text[-300:]}")
+    out["counts"]["cli_yolo_detect"] = counts
+    log(f"[16 cli] yolo_detect --conf_thres 0.1 on a 640x480 image: "
+        f"launches {compact(counts)}, {len(res['scores'])} detections, "
+        f"drawn; {wall:.1f} s in main()")
+    res, counts, wall, _, _ = run_cli(yolo_eval.main, [
+        "--weights", str(weights), "--images", img_dir, "--annotations",
+        ann, "--max_images", str(YOLO_CLI_EVAL_IMAGES)])
+    want = -(-YOLO_CLI_EVAL_IMAGES // YOLO_BATCH)
+    if counts != {**{k: 0 for k in counts}, "nms": want} or len(res) != 12:
+        raise AssertionError(f"yolo_eval launched {counts}")
+    out["counts"]["cli_yolo_eval"] = counts
+    out["times"]["yolo_eval s/img"] = (wall / YOLO_CLI_EVAL_IMAGES,)
+    log(f"[16 cli] yolo_eval --max_images {YOLO_CLI_EVAL_IMAGES}: launches "
+        f"{compact(counts)}, bbox AP {res[0]:.4f}; {wall:.1f} s in main() "
+        f"[{card}]")
+    save = tmp / "yolov3.npz"
+    losses, counts, wall, starts, _ = run_cli(yolo_train.main, [
+        "--images", img_dir, "--annotations", ann, "--steps",
+        str(CLI_TRAIN_STEPS), "--save", str(save)], YOE.YoloTrainer)
+    if (any(counts.values()) or len(losses) != CLI_TRAIN_STEPS
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"yolo_train launched {counts}; losses {losses}")
+    # read back strictly (no check of its detections: five train-mode steps
+    # move the synthetic running statistics off what the layers produce)
+    back = YOE.YoloPredictor(weights=str(save), device=dev)
+    if back.run_batch(*yolo_canvas(imgs[:1]))["valid"].shape != (1,
+                                                                cfg.max_det):
+        raise AssertionError(f"{save.name} read back gives other shapes")
+    gaps = np.diff(starts)
+    out["counts"]["cli_yolo_train"] = counts
+    out["times"]["yolo_train s/it"] = (float(np.median(gaps[1:])),)
+    log(f"[16 cli] yolo_train --steps {CLI_TRAIN_STEPS} (B = 8, the 832 "
+        f"canvas): launches {compact(counts)}; losses "
+        f"{[round(v, 4) for v in losses]}; {save.name} read back by "
+        f"YoloPredictor; {out['times']['yolo_train s/it'][0]:.3f} s/it, host "
+        f"included (the median interval between steps' starts after the "
+        f"first; all {[round(float(g), 3) for g in gaps]}) [{card}]")
+    del back
+    out["times"].update(time_yolo(preds, imgs, trainer, tb, card))
+    label, t = time_nms_call(calls[torch.float32, YOLO_BATCH], "YOLOv3", card,
+                             tag="16 timing")
+    out["nms"][label] = t
+    return out
+
+
+def time_yolo(preds: dict, imgs: list, trainer, tb: list, card: str) -> dict:
+    """The predictor's device pipeline (letterbox, DarkNet-53, decode,
+    top-k, K1) at B = 1 and 8 in f32 and bf16 through both paths, its
+    run_batch on the host clock (uploads and downloads included), and the
+    training step at B = 8."""
+    times = {}
+    for dt, pred in preds.items():
+        for b in (1, YOLO_BATCH):
+            batch, hw = yolo_canvas(imgs[:b])
+            x = torch.from_numpy(batch).to(pred.device)
+            h = torch.from_numpy(hw).to(pred.device)
+            with torch.inference_mode():
+                k, p = time_pair(lambda: pred.detect(x, h), iters=5)
+            pred.run_batch(batch, hw)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pred.run_batch(batch, hw)
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+            name = f"yolov3 forward {str(dt)[6:]} B={b}"
+            times[name] = (k, p)
+            times[f"yolov3 run_batch {str(dt)[6:]} B={b}"] = (wall,)
+            log(f"[16 timing] YOLOv3-416 {str(dt)[6:]} B={b} (letterbox from "
+                f"{batch.shape[1]}x{batch.shape[2]}, DarkNet-53, decode, "
+                f"top-k, K1): kernels {1e3 * b / k:.2f} img/s ({k:.3f} ms), "
+                f"plain {1e3 * b / p:.2f} img/s ({p:.3f} ms); run_batch "
+                f"{1e3 * b / wall:.2f} img/s ({wall:.1f} ms on the host "
+                f"clock, mean of 3) [{card}]")
+    step = lambda: trainer.train_step(*tb, YOE.BURN_IN)  # noqa: E731
+    ms = cuda_time_ms(step, iters=5, warmup=2)
+    times[f"yolov3 train step B={YOLO_BATCH}"] = (ms,)
+    log(f"[16 timing] YOLOv3 train step B={YOLO_BATCH} on the "
+        f"{tb[0].shape[1]}x{tb[0].shape[2]} canvas (letterbox, forward, "
+        f"loss, backward, SGD; TF32 convolutions; no kernel of the port): "
+        f"{ms:.3f} ms ({1e3 * YOLO_BATCH / ms:.2f} img/s), mean of 5 "
+        f"[{card}]")
+    return times
+
+
+def synthetic_vit_state_dict(cfg, seed: int) -> dict:
+    """jeonsworld-keyed ViT weights from a numpy seed: conv and linear
+    weights N(0, 1/fan_in), the class token and position embeddings
+    N(0, 0.02^2), LayerNorm scales U(0.5, 1.5), biases and shifts
+    N(0, 0.02^2)."""
+    with torch.device("meta"):
+        shapes = {k: tuple(t.shape)
+                  for k, t in VIT.VisionTransformer(cfg).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        if len(shape) in (2, 4):
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif k.endswith("norm.weight"):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            a = rng.normal(0, 0.02, shape)
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def google_vit_npz(sd: dict, cfg) -> dict:
+    """A jeonsworld-keyed state_dict in google-research's vision_transformer
+    npz layout (per-head query/key/value kernels [D, H, hd], out's
+    [H, hd, D], [in, out] kernels, the patch kernel HWIO)."""
+    d, h = cfg.hidden_size, cfg.num_heads
+    g = {k: v.numpy() for k, v in sd.items()}
+    pe = "transformer.embeddings."
+    out = {"embedding/kernel": g[pe + "patch_embeddings.weight"].transpose(
+               2, 3, 1, 0),
+           "embedding/bias": g[pe + "patch_embeddings.bias"],
+           "cls": g[pe + "cls_token"],
+           "Transformer/posembed_input/pos_embedding":
+               g[pe + "position_embeddings"],
+           "Transformer/encoder_norm/scale":
+               g["transformer.encoder.encoder_norm.weight"],
+           "Transformer/encoder_norm/bias":
+               g["transformer.encoder.encoder_norm.bias"],
+           "head/kernel": g["head.weight"].T, "head/bias": g["head.bias"]}
+    for i in range(cfg.num_layers):
+        src = f"transformer.encoder.layer.{i}."
+        dst = f"Transformer/encoderblock_{i}/"
+        for s, t in (("attention_norm", "LayerNorm_0"),
+                     ("ffn_norm", "LayerNorm_2")):
+            out[f"{dst}{t}/scale"] = g[f"{src}{s}.weight"]
+            out[f"{dst}{t}/bias"] = g[f"{src}{s}.bias"]
+        mha = dst + "MultiHeadDotProductAttention_1/"
+        for name in ("query", "key", "value"):
+            out[f"{mha}{name}/kernel"] = g[f"{src}attn.{name}.weight"].T \
+                .reshape(d, h, d // h)
+            out[f"{mha}{name}/bias"] = g[f"{src}attn.{name}.bias"].reshape(
+                h, d // h)
+        out[f"{mha}out/kernel"] = g[f"{src}attn.out.weight"].T.reshape(
+            h, d // h, d)
+        out[f"{mha}out/bias"] = g[f"{src}attn.out.bias"]
+        for j, fc in enumerate(("fc1", "fc2")):
+            out[f"{dst}MlpBlock_3/Dense_{j}/kernel"] = g[
+                f"{src}ffn.{fc}.weight"].T
+            out[f"{dst}MlpBlock_3/Dense_{j}/bias"] = g[f"{src}ffn.{fc}.bias"]
+    return out
+
+
+def vit_images(rng: np.random.Generator, b: int, size: int) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 256, (b, size, size, 3)).astype(
+        np.uint8))
+
+
+def phase_vit(dev, tmp: Path, card: str) -> dict:
+    """Phase 16, ViT-B/16 at full width, weights from a numpy seed written
+    as a jeonsworld .pth and a google-research .npz: the classifier and
+    forwards at B = 1 and 32 (no kernel launched), card vs CPU, training,
+    the two CLIs, timings."""
+    from tpuseg_torch.tools import vit_infer, vit_train
+    from tpuseg_torch.weights.from_jax import vit_state_dict_from_jax
+    from tpuseg_torch.weights.npz_io import load_params_npz
+
+    vcfg = VC.config_to_vit(get_config(VIT_CONFIG))
+    sd = synthetic_vit_state_dict(vcfg, SEED + 50)
+    pth, npz = tmp / "vit.pth", tmp / "vit.npz"
+    torch.save(sd, pth)
+    np.savez(npz, **google_vit_npz(sd, vcfg))
+    for path in (pth, npz):
+        got = VC.load_vit_weights(str(path), vcfg)
+        if got.keys() != sd.keys() or not all(
+                torch.equal(got[k], v) for k, v in sd.items()):
+            raise AssertionError(f"{path.name}: load_vit_weights differs")
+    out = {"counts": {}, "times": {}}
+    rng = np.random.default_rng(SEED + 51)
+    clf = VC.ViTClassifier(VIT_CONFIG, str(npz), device=dev)
+    img = textured_image(rng, 375, 500)
+    kernels.reset_launch_counts()
+    ids, probs = clf.run_on_image(img)
+    forwards = {}
+    with torch.inference_mode():
+        for b in (1, VIT_BATCH):
+            forwards[b] = clf.forward(vit_images(rng, b, vcfg.image_size).to(
+                dev))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if (any(counts.values()) or not np.isfinite(probs).all()
+            or not np.all(np.diff(probs) <= 0)
+            or not all(torch.isfinite(v).all() for v in forwards.values())):
+        raise AssertionError(f"ViT inference launched {counts}; top-5 {ids} "
+                             f"{probs}")
+    out["counts"]["vit_inference"] = counts
+    log(f"[16 vit] load_vit_weights reads the .pth and the google .npz to "
+        f"the same tensors; ViTClassifier.run_on_image on a 375x500 image: "
+        f"top-5 {ids.tolist()} at {[round(float(p), 4) for p in probs]}; "
+        f"forwards at B = 1 and {VIT_BATCH}: logits "
+        f"{tuple(forwards[VIT_BATCH].shape)}, finite; launches "
+        f"{compact(counts)}")
+    x = VIT_PRE(vit_images(rng, 2, vcfg.image_size), size=vcfg.image_size)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode(), exact_convs():
+            card_logits = clf.model(x.to(dev)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cpu = VC.build_vit(vcfg, state_dict=sd).eval()
+    with torch.inference_mode():
+        want = cpu(x)
+    del cpu
+    err = float((card_logits - want).abs().max()) / float(want.abs().max())
+    if err > 1e-4:
+        raise AssertionError(f"ViT logits: card vs CPU {err:.3g} of max|ref|")
+    log(f"[16 vit] logits at B = 2, the card (TF32 off) against the same "
+        f"model on the CPU: largest error {err:.3g} of max|ref| (limit 1e-4)")
+
+    trainer = VT.ViTTrainer(vcfg, lr_fn=lambda it: VIT_LR, state_dict=sd,
+                            device=dev)
+    images = VIT_PRE(vit_images(rng, VIT_BATCH, vcfg.image_size).to(dev),
+                     size=vcfg.image_size)
+    labels = torch.from_numpy(rng.integers(0, vcfg.num_classes, VIT_BATCH))
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(images, labels, i)
+               for i in range(VIT_TRAIN_STEPS)]
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    still, _ = moved(trainer.model, before)
+    if any(counts.values()) or not np.isfinite(losses).all() or still:
+        raise AssertionError(f"ViT training launched {counts}; losses "
+                             f"{losses}; still {still[:5]}")
+    out["counts"]["vit_training"] = counts
+    log(f"[16 vit] ViTTrainer {VIT_TRAIN_STEPS} steps at B = {VIT_BATCH}, "
+        f"lr {VIT_LR}, in {seconds:.1f} s: launches {compact(counts)}; "
+        f"losses {[round(v, 4) for v in losses]}; all "
+        f"{len(list(trainer.model.parameters()))} parameters moved")
+
+    img_path = tmp / "vit_image.png"
+    from PIL import Image
+
+    Image.fromarray(img).save(img_path)
+    (ids2, _), counts, wall, _, _ = run_cli(vit_infer.main, [
+        "--image", str(img_path), "--weights", str(pth)])
+    if any(counts.values()) or list(ids2) != list(ids):
+        raise AssertionError(f"vit_infer launched {counts}, top-5 {ids2}")
+    out["counts"]["cli_vit_infer"] = counts
+    log(f"[16 cli] vit_infer with the .pth: launches {compact(counts)}, the "
+        f"classifier's top-5; {wall:.1f} s in main()")
+    save = tmp / "vit_finetuned.npz"
+    metrics, counts, wall, starts, _ = run_cli(vit_train.main, [
+        "--steps", str(CLI_TRAIN_STEPS), "--save", str(save)], VT.ViTTrainer)
+    losses = [m["loss"] for m in metrics]
+    if any(counts.values()) or not np.isfinite(losses).all():
+        raise AssertionError(f"vit_train launched {counts}; losses {losses}")
+    VC.build_vit(vcfg, vit_state_dict_from_jax(load_params_npz(str(save))))
+    gaps = np.diff(starts)
+    out["counts"]["cli_vit_train"] = counts
+    out["times"]["vit_train s/it"] = (float(np.median(gaps[1:])),)
+    log(f"[16 cli] vit_train --steps {CLI_TRAIN_STEPS} (synthetic, B = "
+        f"{VIT_BATCH}): launches {compact(counts)}; losses "
+        f"{[round(v, 4) for v in losses]}; {save.name} read back strictly; "
+        f"{out['times']['vit_train s/it'][0]:.3f} s/it, host included (all "
+        f"{[round(float(g), 3) for g in gaps]}) [{card}]")
+
+    for b in (1, VIT_BATCH):
+        xb = VIT_PRE(vit_images(rng, b, vcfg.image_size).to(dev),
+                     size=vcfg.image_size)
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: clf.model(xb), iters=10)
+        out["times"][f"vit forward B={b}"] = (ms,)
+        log(f"[16 timing] ViT-B/16 forward f32 B={b} (TF32 convolutions, f32 "
+            f"matmuls, no kernel of the port): {1e3 * b / ms:.2f} img/s "
+            f"({ms:.3f} ms), mean of 10 [{card}]")
+    ms = cuda_time_ms(lambda: trainer.train_step(images, labels, 0), iters=5,
+                      warmup=2)
+    out["times"][f"vit train step B={VIT_BATCH}"] = (ms,)
+    log(f"[16 timing] ViT-B/16 train step B={VIT_BATCH} (forward, backward, "
+        f"SGD): {ms:.3f} ms ({1e3 * VIT_BATCH / ms:.2f} img/s), mean of 5 "
+        f"[{card}]")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -3705,6 +4256,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         pose2seg = phase_pose2seg(dev, Path(tmp), card)
     times.update(pose2seg["times"])
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        yolo = phase_yolo(dev, Path(tmp), card)
+        torch.cuda.empty_cache()
+        vit = phase_vit(dev, Path(tmp), card)
+    times.update(yolo["times"])
+    times.update(vit["times"])
+    log(f"[16 total] phase 16 in {time.perf_counter() - t16:.1f} s")
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
@@ -3713,7 +4273,11 @@ def main() -> int:
         each CLI's run; phase 14's: one B = 2 forward and three training
         steps of C4, Faster R-CNN FPN and RetinaNet, and their CLIs'
         runs; phase 15's: Pose2Seg's run_on_image of each image in f32 and
-        bf16, three training steps and its CLIs' runs."""
+        bf16, three training steps and its CLIs' runs; phase 16's: YOLOv3's
+        run_batch at B = 1 and 8 in f32 and bf16, evaluate_coco_boxes over
+        16 images, three training steps and its CLIs' runs, ViT-B/16's
+        classifier and forwards, three training steps and its CLIs'
+        runs."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
@@ -3722,7 +4286,9 @@ def main() -> int:
                 "coco_evaluate_dataset": coco_yolact["counts"][name],
                 **{f"cli_{c}": n[name] for c, n in clis["counts"].items()},
                 **{path: n[name] for path, n in family["counts"].items()},
-                **{path: n[name] for path, n in pose2seg["counts"].items()}}
+                **{path: n[name] for path, n in pose2seg["counts"].items()},
+                **{path: n[name] for path, n in yolo["counts"].items()},
+                **{path: n[name] for path, n in vit["counts"].items()}}
 
     def pose2seg_shapes(prefix: str) -> dict:
         return {label: shape_entry(t)
@@ -3730,7 +4296,7 @@ def main() -> int:
                 if label.startswith(prefix + " ")}
 
     log(f"[total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 15 (the kernels' build included)")
+        "main to the end of phase 16 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
@@ -3738,10 +4304,12 @@ def main() -> int:
                         "tpuseg/ops/pallas/nms_pl.py:138", launches("nms"),
                         nms_res["max_abs_err"],
                         times["nms B=2 class-aware N=2048"]),
-         # the same kernel at the detectron family's shapes (phase 14), on
-         # the inputs the models gave it; each equal to the plain version
+         # the same kernel at the detectron family's shapes (phase 14) and
+         # YOLOv3's class-aware NMS (phase 16), on the inputs the models
+         # gave it; each equal to the plain version
          "shapes": {label: shape_entry(t)
-                    for label, t in family["nms"].items()}},
+                    for label, t in {**family["nms"],
+                                     **yolo["nms"]}.items()}},
         kernel_entry("roi_align", "tpuseg_torch/csrc/roi_align.cu",
                      "tpuseg/ops/pallas/roi_align_pl.py:576",
                      launches("roi_align"), roi_res["max_abs_err"],

@@ -126,7 +126,8 @@ def test_partial_checkpoint_refused_as_tpuseg_refuses_it(upstream, case,
 def test_port_checkpoint_round_trip(tmp_path):
     """A model saved by the port's checkpoint writer loads back through the
     loader into the predictor, every tensor equal; the JAX params' npz is
-    refused."""
+    read too, as tpuseg's loader reads it, its config unchanged
+    (tests/test_torch_npz_io.py holds it tensor by tensor)."""
     cfg = TP.Pose2SegConfig(input_size=64, seg_units=2, cat_skeleton=False)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TP, "ResNetFPN", functools.partial(TP.ResNetFPN,
@@ -139,5 +140,11 @@ def test_port_checkpoint_round_trip(tmp_path):
     assert not pred.cfg.cat_skeleton and pred.cfg.seg_units == 2
     for k, v in model.state_dict().items():
         assert torch.equal(pred.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError):
-        load_pose2seg_weights(str(tmp_path / "params.npz"), cfg)
+    from tpuseg.engine.trainer import save_params_npz
+
+    tree = jax_tree(np.random.default_rng(9), cfg)
+    save_params_npz(str(tmp_path / "params.npz"), tree)
+    sd, cfg2 = load_pose2seg_weights(str(tmp_path / "params.npz"), cfg)
+    assert cfg2 == cfg
+    assert torch.equal(sd["segnet.conv2.weight"], pose2seg_state_dict_from_jax(
+        tree)["segnet.conv2.weight"])

@@ -44,7 +44,14 @@ SLICE_MODULES = [
     "tpuseg_torch.ops.losses", "tpuseg_torch.models.pose2seg",
     "tpuseg_torch.models.pose2seg_loss", "tpuseg_torch.weights.pose2seg_map",
     "tpuseg_torch.engine.pose2seg_engine", "tpuseg_torch.tools.pose2seg_test",
-    "tpuseg_torch.tools.pose2seg_train",
+    "tpuseg_torch.tools.pose2seg_train", "tpuseg_torch.nn.darknet",
+    "tpuseg_torch.models.yolov3", "tpuseg_torch.models.yolov3_loss",
+    "tpuseg_torch.weights.darknet_io", "tpuseg_torch.weights.npz_io",
+    "tpuseg_torch.engine.yolo_engine", "tpuseg_torch.tools.yolo_detect",
+    "tpuseg_torch.tools.yolo_eval", "tpuseg_torch.tools.yolo_train",
+    "tpuseg_torch.nn.vit", "tpuseg_torch.weights.vit_map",
+    "tpuseg_torch.engine.classify", "tpuseg_torch.engine.vit_train",
+    "tpuseg_torch.tools.vit_infer", "tpuseg_torch.tools.vit_train",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -1,6 +1,6 @@
-"""YOLACT model presets (the port's copy of the YOLACT part of
-``tpuseg/configs/presets.py``, whose ConfigNode registry the port does not
-carry: plain dicts here).
+"""Model presets (the port's copy of ``tpuseg/configs/presets.py``): the
+ViT presets as ConfigNodes in ``engine/config.py``'s registry
+(``get_config("vit_b16_config")``), the YOLACT presets as plain dicts.
 
 Upstream's ``--config=<name>_config`` chains (Yolact.jittor
 ``data/config.py``): a preset is its parent's dict updated with its own
@@ -11,8 +11,18 @@ into a :class:`~tpuseg_torch.models.yolact_loss.YolactLossConfig`.
 """
 from __future__ import annotations
 
+from tpuseg_torch.engine.config import ConfigNode, register_config
 from tpuseg_torch.models.yolact import YolactConfig
 from tpuseg_torch.models.yolact_loss import YolactLossConfig
+
+# ViT (ViT.jittor)
+vit_b16_config = register_config("vit_b16_config", ConfigNode({
+    "name": "vit_b16", "model": "vit", "image_size": 224, "patch_size": 16,
+    "hidden_size": 768, "num_layers": 12, "num_heads": 12, "mlp_dim": 3072,
+    "num_classes": 1000}))
+vit_l16_config = register_config("vit_l16_config", vit_b16_config.copy({
+    "name": "vit_l16", "hidden_size": 1024, "num_layers": 24,
+    "num_heads": 16, "mlp_dim": 4096}))
 
 _SCALES = (24, 48, 96, 192, 384)
 

@@ -5,8 +5,9 @@
 inheritance: attribute access, deep copy with overrides, YAML merge,
 dotted-key list merge, freeze. PyYAML is imported only by
 :meth:`ConfigNode.merge_from_file`, :meth:`ConfigNode.merge_from_list` and
-:meth:`ConfigNode.dump`. The YOLACT presets are plain dicts in
-``tpuseg_torch/configs/presets.py``.
+:meth:`ConfigNode.dump`. The registry of named presets
+(:func:`register_config`, :func:`get_config`) holds the ViT presets of
+``tpuseg_torch/configs/presets.py``; its YOLACT presets are plain dicts.
 """
 from __future__ import annotations
 
@@ -182,3 +183,28 @@ def _reconstruct_config_node(items: dict, frozen: bool) -> ConfigNode:
         dict.__setitem__(node, k, v)
     object.__setattr__(node, "_frozen", frozen)
     return node
+
+
+_REGISTRY: dict = {}
+
+
+def register_config(name: str, cfg: ConfigNode) -> ConfigNode:
+    _REGISTRY[name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ConfigNode:
+    """A copy of the preset registered as ``name`` (the reference's
+    ``--config=<name>``)."""
+    import tpuseg_torch.configs.presets  # noqa: F401  (registers them)
+
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown config '{name}'; available: {sorted(_REGISTRY)}")
+    return _REGISTRY[name].clone()
+
+
+def available_configs() -> list:
+    import tpuseg_torch.configs.presets  # noqa: F401
+
+    return sorted(_REGISTRY)

@@ -1,7 +1,8 @@
 """Where a model's training step, or its forward, spends the card's time.
 
     python3 -m tpuseg_torch.tools.step_profile [--tree DIR] [--steps 3]
-        [--model maskrcnn|c4|faster_rcnn|retinanet|pose2seg] [--forward]
+        [--model maskrcnn|c4|faster_rcnn|retinanet|pose2seg|yolov3|vit]
+        [--forward]
 
 Builds the smoke's configuration from ``chip_smoke.py`` of the checkout
 ``--tree`` (default: this one; another checkout, for example the parent
@@ -13,7 +14,11 @@ B = 2 on the 800x1344 canvas, synthetic images from the smoke's seeds,
 TF32 convolutions. ``--model pose2seg`` is phase 15's: the calibrated
 synthetic weights, the forward at B = 1 with 16 people on the 512 canvas,
 the training step (with the ground-truth warp) at B = 4 over the smoke's
-keypoint dataset. Times four runs of 5 steps (or forwards) with CUDA
+keypoint dataset. ``--model yolov3`` and ``--model vit`` are phase 16's:
+YOLOv3-416's device pipeline (letterbox, DarkNet-53, decode, top-k, K1)
+at B = 8 from the 640x640 canvas, or its training step at B = 8 on the
+832 canvas over the smoke's COCO dataset; ViT-B/16's forward or training
+step at B = 32. Times four runs of 5 steps (or forwards) with CUDA
 events, then traces ``--steps`` of them with ``torch.profiler`` and
 prints, per step: the wall time, the device's busy time (the sum of its
 kernels' times) and idle share, the port's own kernels' time and
@@ -36,7 +41,7 @@ def main(argv=None) -> int:
     ap.add_argument("--top", default=12, type=int)
     ap.add_argument("--model", default="maskrcnn",
                     choices=("maskrcnn", "c4", "faster_rcnn", "retinanet",
-                             "pose2seg"))
+                             "pose2seg", "yolov3", "vit"))
     ap.add_argument("--forward", action="store_true",
                     help="profile a forward instead of a step")
     args = ap.parse_args(argv)
@@ -57,6 +62,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.model == "pose2seg":
         step, shape = pose2seg_step(S, dev, args.forward)
+    elif args.model == "yolov3":
+        step, shape = yolov3_step(S, dev, args.forward)
+    elif args.model == "vit":
+        step, shape = vit_step(S, dev, args.forward)
     else:
         step, shape = detectron_step(S, dev, args.model, args.forward)
     runs = [S.cuda_time_ms(step, iters=5, warmup=2) for _ in range(4)]
@@ -175,6 +184,74 @@ def pose2seg_step(S, dev, forward: bool) -> tuple:
         trainer.train_step(batch["images"], batch["theta"], batch["valid"],
                            gt, skel=batch["skel"])
     return step, f"B={S.P2S_BATCH} {cfg.input_size}"
+
+
+def yolov3_step(S, dev, forward: bool) -> tuple:
+    """Phase 16's YOLOv3-416 at B = 8: the predictor's device pipeline on
+    the smoke's images, or the training step on the 832 canvas ->
+    (closure, shape)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.tools.yolo_train import train_batch
+
+    cfg = S.Y3.YoloV3Config()
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = Path(tmp) / "yolov3.weights"
+        S.write_darknet_weights(weights, cfg, S.SEED + 40)
+        if forward:
+            pred = S.YOE.YoloPredictor(cfg, weights=str(weights), device=dev)
+            rng = np.random.default_rng(S.SEED + 41)
+            batch, hw = S.yolo_canvas([S.textured_image(rng, h, w)
+                                       for h, w in S.YOLO_IMAGES])
+            x = torch.from_numpy(batch).to(dev)
+            h = torch.from_numpy(hw).to(dev)
+
+            def step():
+                with torch.inference_mode():
+                    pred.detect(x, h)
+            return step, f"B={len(hw)} {cfg.input_size} from {batch.shape[1]}"
+        trainer = S.YOE.YoloTrainer(cfg, weights=str(weights), device=dev)
+        img_dir, ann, _ = S.write_coco_dataset(Path(tmp) / "coco",
+                                               S.SEED + 20)
+        ds = S.CocoDetectionDataset(img_dir, ann, include_crowd=False)
+        host = train_batch(ds, ds.image_ids[:S.YOLO_BATCH], cfg.input_size)
+    tb = [torch.from_numpy(a).to(dev) for a in host]
+
+    def step():
+        trainer.train_step(*tb, S.YOE.BURN_IN)
+    return step, f"B={S.YOLO_BATCH} {cfg.input_size} from {tb[0].shape[1]}"
+
+
+def vit_step(S, dev, forward: bool) -> tuple:
+    """Phase 16's ViT-B/16 forward or training step at B = 32 ->
+    (closure, shape)."""
+    import numpy as np
+    import torch
+
+    vcfg = S.VC.config_to_vit(S.get_config(S.VIT_CONFIG))
+    sd = S.synthetic_vit_state_dict(vcfg, S.SEED + 50)
+    rng = np.random.default_rng(S.SEED + 51)
+    x = S.VIT_PRE(S.vit_images(rng, S.VIT_BATCH, vcfg.image_size).to(dev),
+                  size=vcfg.image_size)
+    shape = f"B={S.VIT_BATCH} {vcfg.image_size}"
+    if forward:
+        model = S.VC.build_vit(vcfg, state_dict=sd).to(dev).eval()
+
+        def step():
+            with torch.inference_mode():
+                model(x)
+        return step, shape
+    trainer = S.VT.ViTTrainer(vcfg, lr_fn=lambda it: S.VIT_LR, state_dict=sd,
+                              device=dev)
+    labels = torch.from_numpy(rng.integers(0, vcfg.num_classes,
+                                           S.VIT_BATCH))
+
+    def step():
+        trainer.train_step(x, labels, 0)
+    return step, shape
 
 
 if __name__ == "__main__":

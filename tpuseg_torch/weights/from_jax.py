@@ -1,5 +1,6 @@
 """The JAX package's param trees -> the port's state_dicts (Mask R-CNN and
-Faster R-CNN FPN and C4, RetinaNet, YOLACT, Pose2Seg).
+Faster R-CNN FPN and C4, RetinaNet, YOLACT, Pose2Seg, YOLOv3, ViT), and
+back for YOLOv3 and ViT (the trees their training CLIs write as npz).
 
 The inverses of ``tpuseg/weights/detectron_map.py::from_torch_state``,
 ``tpuseg/models/maskrcnn_c4.py::from_torch_state``,
@@ -9,12 +10,15 @@ The inverses of ``tpuseg/weights/detectron_map.py::from_torch_state``,
 OIHW, linear weights [in, out] -> [out, in], fc6's rows back from the NHWC
 (H, W, C) flattening to upstream's (C, H, W), and the deconv kernel
 [kh, kw, in, out] -> [in, out, kh, kw]. Takes numpy arrays (``np.asarray``
-of the JAX leaves), so this module needs no jax.
+of the JAX leaves, or ``weights/npz_io.py::load_params_npz``'s tree), so
+this module needs no jax.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpuseg_torch.weights.npz_io import flatten_params, unflatten_params
 
 
 def _t(a) -> torch.Tensor:
@@ -219,3 +223,91 @@ def pose2seg_state_dict_from_jax(params: dict) -> dict:
     _stage(sd, "segnet.layers", seg["units"], bn=_bn_tracked)
     _conv(sd, "segnet.conv2", seg["classifier"])
     return sd
+
+
+def yolov3_state_dict_from_jax(params: dict) -> dict:
+    """The JAX YOLOv3 tree (``yolov3.init_params`` /
+    ``load_yolov3_weights``) -> the port's
+    :class:`~tpuseg_torch.models.yolov3.YoloV3` state_dict. The port's
+    modules carry the tree's paths as their names, so each leaf keeps its
+    dotted path; conv kernels go HWIO -> OIHW, and each BatchNorm gets its
+    step counter."""
+    sd = {}
+    for k, v in flatten_params(params).items():
+        sd[k] = _t(v.transpose(3, 2, 0, 1) if v.ndim == 4 else v)
+        if k.endswith(".bn.running_var"):
+            sd[k.removesuffix("running_var") + "num_batches_tracked"] = (
+                torch.tensor(0))
+    return sd
+
+
+def yolov3_jax_from_state_dict(sd: dict) -> dict:
+    """The inverse of :func:`yolov3_state_dict_from_jax`: the tree the JAX
+    package's ``save_params_npz`` writes for YOLOv3 (numpy f32 leaves)."""
+    flat = {}
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        a = v.detach().cpu().float().numpy()
+        flat[k] = np.ascontiguousarray(a.transpose(2, 3, 1, 0)
+                                       if a.ndim == 4 else a)
+    return unflatten_params(flat)
+
+
+# the JAX ViT's stacked block leaves -> the port's (jeonsworld's) names
+_VIT_BLOCK = {
+    "ln1": "attention_norm", "ln2": "ffn_norm", "attn.q": "attn.query",
+    "attn.k": "attn.key", "attn.v": "attn.value", "attn.out": "attn.out",
+    "mlp.fc1": "ffn.fc1", "mlp.fc2": "ffn.fc2"}
+_VIT_TOP = {
+    "cls_token": "transformer.embeddings.cls_token",
+    "pos_embed": "transformer.embeddings.position_embeddings",
+    "ln.weight": "transformer.encoder.encoder_norm.weight",
+    "ln.bias": "transformer.encoder.encoder_norm.bias",
+    "head.bias": "head.bias"}
+_VIT_LAYER = "transformer.encoder.layer.{}."
+
+
+def vit_state_dict_from_jax(params: dict) -> dict:
+    """The JAX ViT tree (``vit.init_params``, its blocks stacked on a
+    leading layer axis) -> the port's
+    :class:`~tpuseg_torch.nn.vit.VisionTransformer` state_dict: the layer
+    axis unstacked, linear weights [in, out] -> [out, in], the patch
+    embedding HWIO -> OIHW."""
+    flat = flatten_params(params)
+    sd = {dst: _t(flat[src]) for src, dst in _VIT_TOP.items()}
+    sd["head.weight"] = _t(flat["head.weight"].T)
+    sd["transformer.embeddings.patch_embeddings.weight"] = _t(
+        flat["patch_embed.weight"].transpose(3, 2, 0, 1))
+    sd["transformer.embeddings.patch_embeddings.bias"] = _t(
+        flat["patch_embed.bias"])
+    for src, dst in _VIT_BLOCK.items():
+        w, b = flat[f"blocks.{src}.weight"], flat[f"blocks.{src}.bias"]
+        for i in range(w.shape[0]):
+            pre = _VIT_LAYER.format(i) + dst
+            sd[f"{pre}.weight"] = _t(w[i].T if w.ndim == 3 else w[i])
+            sd[f"{pre}.bias"] = _t(b[i])
+    return sd
+
+
+def vit_jax_from_state_dict(sd: dict) -> dict:
+    """The inverse of :func:`vit_state_dict_from_jax`: the tree the JAX
+    package's ``save_params_npz`` writes for ViT (numpy f32 leaves)."""
+    def g(k):
+        return sd[k].detach().cpu().float().numpy()
+
+    nl = 1 + max(int(k.split(".")[3]) for k in sd
+                 if k.startswith(_VIT_LAYER[:-3]))
+    flat = {src: g(dst) for src, dst in _VIT_TOP.items()}
+    flat["head.weight"] = g("head.weight").T
+    flat["patch_embed.weight"] = g(
+        "transformer.embeddings.patch_embeddings.weight").transpose(2, 3, 1, 0)
+    flat["patch_embed.bias"] = g("transformer.embeddings.patch_embeddings.bias")
+    for src, dst in _VIT_BLOCK.items():
+        ws = [g(_VIT_LAYER.format(i) + dst + ".weight") for i in range(nl)]
+        flat[f"blocks.{src}.weight"] = np.stack(
+            [w.T if w.ndim == 2 else w for w in ws])
+        flat[f"blocks.{src}.bias"] = np.stack(
+            [g(_VIT_LAYER.format(i) + dst + ".bias") for i in range(nl)])
+    return unflatten_params({k: np.ascontiguousarray(v)
+                             for k, v in flat.items()})

@@ -34,11 +34,14 @@ _BN = ("weight", "bias", "running_mean", "running_var")
 def load_pose2seg_weights(path: str, cfg: P2S.Pose2SegConfig) -> tuple:
     """Read a Pose2Seg checkpoint (any file and container that
     ``weights/torch_io.py`` reads) -> (state_dict, cfg'), see
-    :func:`pose2seg_from_torch`."""
+    :func:`pose2seg_from_torch`; or the JAX package's npz params ->
+    (state_dict, cfg), the config unchanged, as the JAX loader returns
+    it."""
     if path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's npz params; the port reads torch and "
-            "pickle checkpoints")
+        from tpuseg_torch.weights.from_jax import pose2seg_state_dict_from_jax
+        from tpuseg_torch.weights.npz_io import load_params_npz
+
+        return pose2seg_state_dict_from_jax(load_params_npz(path)), cfg
     return pose2seg_from_torch(flatten_state_dict(load_torch_file(path)), cfg)
 
 
