@@ -146,6 +146,28 @@ Phases, one line each; any failure raises and exits non-zero:
      through both paths and run_batch, its step at B = 8, K1 at [8, 1000]
      class-aware against plain and its bound, ViT-B/16's forward at B = 1
      and 32 and its step at B = 32, the CLIs).
+  17. bf16 mixed precision, YOLACT-550 DarkNet53-FPN and the npz writers:
+     Mask R-CNN R-50-FPN, Faster R-CNN FPN, Mask R-CNN C4 and RetinaNet
+     through build_predictor_from_cfg(dtype=bf16) on their yamls with
+     phase 14's calibrated weights (launches per forward at B = 1 and 2,
+     sane detections returned in f32, every K1 and K2 call equal to the
+     plain version on its inputs, the heads on one bf16 pyramid kernels vs
+     plain detection for detection; the agreement with the f32 predictor
+     printed, not gated); 3 do_train(compute_dtype=bf16) steps of Mask
+     R-CNN at B = 2 (K2 and K3 in bf16) and 3 train(compute_dtype=bf16)
+     steps of YOLACT++ at B = 8 in train-mode BatchNorm (13 K4 + 13 K4c in
+     bf16): launches, finite losses, f32 masters, every trainable
+     parameter moved, the f32 running statistics updated; one step each
+     kernels vs plain by relative L2 per gradient within ten times either
+     path's spread between its own runs, at least one bf16 rounding and at
+     most BF16_STEP_CAP (YOLACT++: BF16_TRAIN_MODE_CAP); YOLACT DarkNet-53
+     through YolactPredictor in f32 and bf16 at B = 1 and 8 (no launch), its raw
+     predictions on the card against the CPU's (TF32 off, 1e-4 max|ref|),
+     one bf16 yolact_train step of the preset through the CLI; the JAX
+     trees of the detectron models, YOLACT++ and Pose2Seg through the npz
+     writers, read back equal; K2, K3, K4 and K4c at the bf16 paths' own
+     inputs against plain, their bounds and grid_sample; the bf16
+     forwards and steps timed beside the f32 ones.
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 """
@@ -185,7 +207,8 @@ from tpuseg_torch.engine.maskrcnn_engine import (COCO_CATEGORY_IDS,
                                                  MaskRCNNPredictor,
                                                  preprocess_image_bgr)
 from tpuseg_torch.engine.config import get_config
-from tpuseg_torch.engine.trainer import (ckpt_path, make_optimizer,
+from tpuseg_torch.engine.trainer import (call_in_dtype, ckpt_path,
+                                         make_optimizer,
                                          make_yolact_optimizer,
                                          yolact_lr_schedule)
 from tpuseg_torch.data.image_io import resize_bilinear_u8
@@ -208,6 +231,9 @@ from tpuseg_torch.ops import sampling
 from tpuseg_torch.ops.deform_conv import dcn_sample_coords, deform_conv2d
 from tpuseg_torch.ops.preprocess import vit_preprocess as VIT_PRE
 from tpuseg_torch.ops.preprocess import yolact_preprocess
+from tpuseg_torch.weights import from_jax as FJ
+from tpuseg_torch.weights.npz_io import load_params_npz, save_params_npz
+from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
 
 SEED = 0
 CANVAS = (800, 1344)
@@ -240,6 +266,11 @@ TRAIN_OFFSET_SCALE = 0.2
 # YOLACT's class-logit layer: N(0, 1/fan) times this spreads the best
 # class scores, so that few of them lie near the 0.05 gate
 CONF_SCALE = 3.0
+# DarkNet-53's residual convs' BatchNorm affine (conv2.bn of each block)
+# times this: at 1 its 23 residual adds grow C5 to ~100 and YOLACT's class
+# logits to a standard deviation of ~35 (every score saturated); at 0.3 the
+# taps stay O(1), as ResNet's (measured on the CPU at a 128 canvas)
+DARKNET_RESIDUAL_SCALE = 0.3
 # the least time of a kernel's work: bytes over the H100 SXM's memory rate,
 # f32 operations over its rate outside the tensor cores (the H100 SXM's
 # published peaks; the kernels compute in f32 for bf16 data too)
@@ -1109,7 +1140,8 @@ def synthetic_yolact_state_dict(model: torch.nn.Module, seed: int,
     get ``offset_scale`` times that (upstream zero-initialises them, and
     zero offsets would make every DCN a plain conv): at OFFSET_SCALE their
     offsets span a few pixels with fractional parts and some taps leave
-    the map."""
+    the map. A DarkNet-53's residual branches are damped by
+    ``DARKNET_RESIDUAL_SCALE``."""
     rng = np.random.default_rng(seed)
     sd = {}
     for k, v in model.state_dict().items():
@@ -1130,6 +1162,8 @@ def synthetic_yolact_state_dict(model: torch.nn.Module, seed: int,
             a = rng.standard_normal(shape) * 0.05
         else:  # biases
             a = rng.standard_normal(shape) * 0.02
+        if ".conv2.bn." in k and not k.endswith("running_var"):
+            a = a * DARKNET_RESIDUAL_SCALE  # DarkNet's residual branch
         sd[k] = torch.from_numpy(a.astype(np.float32))
     return sd
 
@@ -1173,7 +1207,9 @@ def check_yolact(pred: YolactPredictor, det: dict, b: int) -> list:
     the detection counts."""
     k, s = pred.cfg.max_num_detections, 2 * YM.level_sizes(pred.cfg)[0]
     shapes = {"boxes": (b, k, 4), "scores": (b, k), "classes": (b, k),
-              "masks": (b, k, s, s), "valid": (b, k), "mask_scores": (b, k)}
+              "masks": (b, k, s, s), "valid": (b, k)}
+    if pred.cfg.use_maskiou:
+        shapes["mask_scores"] = (b, k)
     if {n: tuple(v.shape) for n, v in det.items()} != shapes:
         raise AssertionError(f"YOLACT detections {det.keys()}")
     det = {n: v.float().cpu().numpy() if v.is_floating_point()
@@ -1181,7 +1217,7 @@ def check_yolact(pred: YolactPredictor, det: dict, b: int) -> list:
     counts = det["valid"].sum(1).tolist()
     v = det["valid"]
     if min(counts) == 0 or not all(np.isfinite(det[n][v]).all() for n in (
-            "boxes", "scores", "masks", "mask_scores")):
+            "boxes", "scores", "masks", "mask_scores") if n in det):
         raise AssertionError(f"YOLACT detections: counts {counts}, or not "
                              "finite")
     if not ((det["masks"] >= 0) & (det["masks"] <= 1)).all() or not (
@@ -1416,12 +1452,14 @@ def rel_l2(a: dict, b: dict) -> dict:
     return out
 
 
-def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple) -> str:
+def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple,
+                       floor: float = 1e-3, cap: float = 1e-2,
+                       what: str = "train-mode", cancelled=()) -> str:
     """Kernels and plain, two runs each, with train-mode BatchNorm: losses
     equal to rtol 1e-6 (the forward is the same); per gradient, the
     relative L2 error between the kernel and the plain path within ten
     times the spread of either path between its own two runs, but no less
-    than 1e-3 and no more than 1e-2. Train-mode BatchNorm's backward
+    than ``floor`` and no more than ``cap``. Train-mode BatchNorm's backward
     subtracts, per channel, the mean of the gradient and of its product
     with the normalised input; that difference of nearly equal sums
     magnifies the rounding of the atomic adds, whose order changes from run
@@ -1429,12 +1467,16 @@ def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple) -> str:
     term would be off by O(1). Left out by rule: the gradients that are
     zero to rounding on the plain path (max|g| below 1e-6 of the largest:
     the bias of a conv in front of a train-mode BatchNorm, which its batch
-    mean cancels); the kernel path's must be too."""
+    mean cancels); the kernel path's must be too. In bf16 that rounding
+    leaves more than 1e-6 of the largest: ``cancelled`` names such biases,
+    whose gradient is zero in exact arithmetic, and the kernel path's must
+    be rounding residue of the same size (its norm at most twice the plain
+    runs')."""
     (l1, g1), (l2, g2), (lp, gp), (_, gp2) = k1, k2, p1, p2
     for k, w in lp.items():
         for got in (l1, l2):
             if not abs(got[k] - w) <= 1e-6 * abs(w):
-                raise AssertionError(f"train-mode loss {k}: kernels "
+                raise AssertionError(f"{what} loss {k}: kernels "
                                      f"{got[k]!r}, plain {w!r}")
     if sorted(g1) != sorted(gp):
         raise AssertionError("the two paths give gradients to other parameters")
@@ -1442,17 +1484,24 @@ def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple) -> str:
     zero = [n for n, w in gp.items() if float(w.abs().max()) <= 1e-6 * top]
     loud = [n for n in zero if float(g1[n].abs().max()) > 1e-6 * top]
     if loud:
-        raise AssertionError(f"train-mode gradients zero to rounding on the "
+        raise AssertionError(f"{what} gradients zero to rounding on the "
                              f"plain path but not on the kernel path: {loud}")
-    live = {n: w for n, w in gp.items() if n not in zero}
+    noise = [n for n in cancelled if n not in zero]
+    big = [n for n in noise if float(g1[n].norm()) > 2 * max(
+        float(gp[n].norm()), float(gp2[n].norm()))]
+    if big:
+        raise AssertionError(f"{what} gradients that cancel to rounding "
+                             f"residue on the plain path but are larger on "
+                             f"the kernel path: {big}")
+    live = {n: w for n, w in gp.items() if n not in zero and n not in noise}
     kp = rel_l2(g1, live)
     kk = rel_l2(g1, {n: g2[n] for n in live})
     pp = rel_l2(gp2, live)
-    limit = {n: min(max(1e-3, 10 * max(kk[n], pp[n])), 1e-2) for n in kp}
+    limit = {n: min(max(floor, 10 * max(kk[n], pp[n])), cap) for n in kp}
     bad = sorted(((kp[n] / limit[n], n) for n in kp if kp[n] > limit[n]),
                  reverse=True)
     if bad:
-        raise AssertionError("train-mode gradients past the limit: " + "; ".join(
+        raise AssertionError(f"{what} gradients past the limit: " + "; ".join(
             f"{n} kernels vs plain {kp[n]:.3g}, kernels {kk[n]:.3g}, plain "
             f"{pp[n]:.3g}" for _, n in bad[:3]))
     worst = max(kp, key=kp.get)
@@ -1460,9 +1509,12 @@ def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple) -> str:
     def med(d):
         return float(np.median(list(d.values())))
 
+    residue_note = (f"; {len(noise)} cancelled to rounding residue of the "
+                    f"same size on both paths" if cancelled else "")
     return (f"losses equal to rtol 1e-6 in both kernel runs; {len(zero)} "
             f"gradients zero to rounding on both paths (max|g| <= 1e-6 of "
-            f"{top:.4g}); relative L2 error of the other {len(live)}, kernels "
+            f"{top:.4g}){residue_note}; relative L2 error of the other "
+            f"{len(live)}, kernels "
             f"vs plain: median {med(kp):.3g}, largest {kp[worst]:.3g} "
             f"({worst}, limit {limit[worst]:.3g}); kernels vs kernels: median "
             f"{med(kk):.3g}, largest {max(kk.values()):.3g}; plain vs plain: "
@@ -1598,22 +1650,31 @@ def bwd_merge_counts(boxes, bidx, levels, p: int, s: int = 2, c: int = 256,
             "direct_share": float((~fits).float().mean())}
 
 
-def kernel_args(module, name: str, fn) -> tuple:
-    """The arguments with which ``fn()`` calls ``module.name`` (a kernel
-    wrapper that the dispatch imports at call time): to time the launch
-    alone, without the torch work around it."""
-    seen, real = [], getattr(module, name)
+@contextlib.contextmanager
+def recording_calls(module, name: str):
+    """Every call of ``module.name`` while the block runs: (args, kwargs,
+    result). The callers look the function up at call time."""
+    calls, orig = [], getattr(module, name)
 
-    def spy(*args):
-        seen.append(args)
-        return real(*args)
+    def run(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
 
-    setattr(module, name, spy)
+    setattr(module, name, run)
     try:
-        fn()
+        yield calls
     finally:
-        setattr(module, name, real)
-    return seen[0]
+        setattr(module, name, orig)
+
+
+def kernel_args(module, name: str, fn) -> tuple:
+    """The arguments with which ``fn()`` first calls ``module.name`` (a
+    kernel wrapper that the dispatch imports at call time): to time the
+    launch alone, without the torch work around it."""
+    with recording_calls(module, name) as calls:
+        fn()
+    return calls[0][0]
 
 
 def phase_timing(dev, pred, train: dict, card: str) -> dict:
@@ -1713,15 +1774,17 @@ def phase_timing(dev, pred, train: dict, card: str) -> dict:
     return times
 
 
-def time_train_step(model, batch, label: str, card: str) -> tuple:
+def time_train_step(model, batch, label: str, card: str,
+                    compute_dtype=None) -> tuple:
     """The training step (forward, backward, SGD) at B = 2 with TF32
-    convolutions as do_train runs them: kernels, plain once, kernels ->
-    (kernels ms, plain ms)."""
+    convolutions as do_train runs them, in ``compute_dtype``'s mixed
+    precision if one is given: kernels, plain once, kernels -> (kernels
+    ms, plain ms)."""
     opt = make_optimizer(model, 0.0025)
     gen = torch.Generator(device=batch[0].device).manual_seed(SEED)
 
     def step():
-        TL.train_step(model, opt, 0.0025 / 3, *batch, gen)
+        TL.train_step(model, opt, 0.0025 / 3, *batch, gen, compute_dtype)
 
     k1 = cuda_time_ms(step, iters=5, warmup=2)
     with kernels.force_plain():
@@ -3315,7 +3378,6 @@ def phase_pose2seg(dev, tmp: Path, card: str) -> dict:
     timings."""
     from tpuseg_torch.kernels import dcn as dcn_kernel
     from tpuseg_torch.tools import pose2seg_test, pose2seg_train
-    from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
 
     cfg = P2S.Pose2SegConfig()
     rng = np.random.default_rng(SEED + 31)
@@ -4159,6 +4221,652 @@ def phase_vit(dev, tmp: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: bf16 mixed precision, YOLACT-550 DarkNet53-FPN, the npz writers
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# the detectron models of the bf16 inference: Mask R-CNN R-50-FPN and phase
+# 14's three, each from its yaml
+BF16_FAMILY = {"maskrcnn": "e2e_mask_rcnn_R_50_FPN_1x.yaml", **FAMILY}
+# the bf16 steps, kernels vs plain, per gradient in relative L2: ten times
+# the larger spread of either path between its own two runs, at least one
+# bf16 rounding (the backward kernels' f32 sums agree with the plain
+# versions' to f32 rounding, and each is rounded to bf16 once: where the
+# two round apart, an element differs by 2^-8 of itself), at most the cap
+BF16_STEP_FLOOR = 2.0 ** -8
+BF16_STEP_CAP = 1e-2
+BF16_TRAIN_MODE_CAP = 1e-1  # YOLACT++'s train-mode BatchNorm magnifies it
+
+
+def check_roi_calls(calls: list) -> str:
+    """Each recorded multilevel_roi_align call against the plain version on
+    its own inputs: equal bit for bit -> its shapes, in call order."""
+    labels = []
+    for args, kwargs, out in calls:
+        with kernels.force_plain():
+            want = sampling.multilevel_roi_align(*args, **kwargs)
+        label = (f"{str(out.dtype)[6:]} N={out.shape[0]} "
+                 f"P={out.shape[-1]}")
+        if not torch.equal(out, want):
+            raise AssertionError(f"RoIAlign {label}: differs from the plain "
+                                 f"version by {float((out - want).abs().max())}")
+        labels.append(label)
+    return ", ".join(labels)
+
+
+def box_agreement(got: list, want: list) -> str:
+    """bf16 detections against f32 ones, per image: how many match one of
+    the same class at IoU >= 0.5 (greedy, best first) and the largest box
+    coordinate difference of a match (information, not a gate)."""
+    out = []
+    for g, w in zip(got, want):
+        used, matched, worst = set(), 0, 0.0
+        wb = w["boxes"]
+        w_area = (wb[:, 2] - wb[:, 0] + 1) * (wb[:, 3] - wb[:, 1] + 1)
+        for i in np.argsort(-g["scores"], kind="stable"):
+            b = g["boxes"][i]
+            ix = (np.minimum(b[2], wb[:, 2]) - np.maximum(b[0], wb[:, 0])
+                  + 1).clip(0)
+            iy = (np.minimum(b[3], wb[:, 3]) - np.maximum(b[1], wb[:, 1])
+                  + 1).clip(0)
+            area = (b[2] - b[0] + 1) * (b[3] - b[1] + 1)
+            iou = ix * iy / (area + w_area - ix * iy)
+            iou[(w["classes"] != g["classes"][i])
+                | np.isin(np.arange(len(iou)), list(used))] = 0
+            j = int(np.argmax(iou)) if len(iou) else -1
+            if j >= 0 and iou[j] >= 0.5:
+                used.add(j)
+                matched += 1
+                worst = max(worst, float(np.abs(w["boxes"][j] - b).max()))
+        out.append(f"{matched}/{len(g['scores'])} of {len(w['scores'])} "
+                   f"(box err {worst:.3g} px)")
+    return "; ".join(out)
+
+
+def npz_reads_back(path: Path, read, state_dict: dict) -> int:
+    """An npz of a JAX tree read back through the port's reader and
+    ``read`` (a *_state_dict_from_jax): every tensor of ``state_dict`` equal
+    (BatchNorm's step counters, which the JAX tree has not, aside) -> the
+    arrays in the file."""
+    back = read(load_params_npz(str(path)))
+    want = {k: v.detach().cpu().float() for k, v in state_dict.items()
+            if not k.endswith("num_batches_tracked")}
+    got = {k: v for k, v in back.items()
+           if not k.endswith("num_batches_tracked")}
+    if got.keys() != want.keys() or not all(torch.equal(got[k], v)
+                                            for k, v in want.items()):
+        raise AssertionError(f"{path.name}: the npz does not read back to "
+                             "the state_dict")
+    with np.load(path) as f:
+        return len(f.files)
+
+
+def npz_round_trip(path: Path, tree: dict, read, state_dict: dict) -> int:
+    """``tree`` written by the port's save_params_npz, then
+    :func:`npz_reads_back`."""
+    save_params_npz(str(path), tree)
+    return npz_reads_back(path, read, state_dict)
+
+
+def bf16_family_inference(name: str, dev, tmp: Path, card: str) -> dict:
+    """build_predictor_from_cfg(dtype=bf16) on the yaml with phase 14's
+    calibrated synthetic weights: launches per forward at B = 1 and 2, sane
+    detections in f32, every K1 and K2 call of the path equal to its plain
+    version on its inputs, the heads on one bf16 pyramid through the
+    kernels and the plain versions detection for detection; the agreement
+    with the f32 predictor (information); the model's JAX tree through the
+    npz writer; the bf16 forward timed beside the f32 one."""
+    from tpuseg_torch.kernels import roi_align as roi_kernel
+
+    yaml = BF16_FAMILY[name]
+    _, cfg = ME.model_config_from_node(family_node(yaml))
+    mod = ME.model_module(cfg)
+    sd, calib = family_state_dict(name, cfg, dev, train=False)
+    ckpt = tmp / f"bf16_{yaml[:-5]}.pth"
+    torch.save({"model": sd}, ckpt)
+    preds = {dt: ME.build_predictor_from_cfg(
+        family_node(yaml, str(ckpt)), device=dev, dtype=dt)
+        for dt in (torch.float32, BF16)}
+    pred = preds[BF16]
+    masks = getattr(cfg, "mask_on", False)
+    landscape, _ = synthetic_images(SEED)
+    want = expected_launches(cfg)[0]
+    counts, dets = {}, []
+    with recording_nms() as nms_calls, \
+            recording_calls(sampling, "multilevel_roi_align") as roi_calls:
+        for b in (1, 2):  # the B = 2 results stay in ``res``
+            kernels.reset_launch_counts()
+            res = pred.run_on_bgr_images(landscape[:b])
+            torch.cuda.synchronize()
+            counts[b] = kernels.launch_counts()
+            dets += [check_result(r, *img.shape[:2], masks=masks)
+                     for r, img in zip(res, landscape)]
+    if counts[1] != want or counts[2] != want:
+        raise AssertionError(f"bf16 {name}: launches {counts} per forward at "
+                             f"B = 1 and 2; want {want}")
+    if min(dets) == 0:
+        raise AssertionError(f"bf16 {name}: no detections: {dets}")
+    images, image_hw = canvas_batch(pred, landscape)
+    with torch.inference_mode():
+        out = pred.forward(images, image_hw)
+    wrong = [k for k, v in out.items()
+             if v.is_floating_point() and v.dtype != torch.float32]
+    if wrong:
+        raise AssertionError(f"bf16 {name}: outputs not f32: {wrong}")
+    if any(p.dtype != BF16 for p in pred.model.parameters()):
+        raise AssertionError(f"bf16 {name}: the model is not bf16")
+    with exact_convs(), torch.inference_mode():
+        feats = pred.model.backbone(images.to(BF16))
+        with recording_calls(roi_kernel, "multilevel_roi_align") as k2:
+            got = mod.forward_heads(pred.model, feats, image_hw, CANVAS)
+        with kernels.force_plain():
+            ref = mod.forward_heads(pred.model, feats, image_hw, CANVAS)
+        torch.cuda.synchronize()
+    agreement = box_agreement(res, preds[torch.float32].run_on_bgr_images(
+        landscape))
+    model32 = preds[torch.float32].model
+    read = {"c4": FJ.c4_state_dict_from_jax,
+            "retinanet": FJ.retinanet_state_dict_from_jax}.get(
+        ME.variant_of(cfg), lambda t: FJ.state_dict_from_jax(t, cfg))
+    n_npz = npz_round_trip(tmp / f"{name}.npz", TL.jax_tree(model32), read,
+                           model32.state_dict())
+    log(f"[17 bf16 {name}] build_predictor_from_cfg({yaml}, dtype=bf16), "
+        f"{calib}: launches {want} per forward at B = 1 and 2; detections "
+        f"{dets}, outputs f32; its NMS calls (kept/valid) equal the plain "
+        f"version bit for bit: {check_nms_calls(nms_calls)}; its RoIAlign "
+        f"calls equal bit for bit: {check_roi_calls(roi_calls) or 'none'}; "
+        f"heads on one bf16 pyramid, kernels vs plain (TF32 off): "
+        f"{compare_heads(got, ref)}; against the f32 predictor (not a "
+        f"gate): matched {agreement}; npz writer: {n_npz} arrays read back "
+        f"equal")
+
+    times = {}
+    with torch.inference_mode():
+        for b in (1, 2):
+            x, hw = images[:b], image_hw[:b]
+            k, p = time_pair(lambda: pred.forward(x, hw), iters=5)
+            f32 = cuda_time_ms(lambda: preds[torch.float32].forward(x, hw),
+                               iters=5)
+            times[f"bf16 {name} forward B={b}"] = (k, p, f32)
+            log(f"[17 timing] {name} forward bf16 B={b} "
+                f"{CANVAS[0]}x{CANVAS[1]}: kernels {1e3 * b / k:.2f} img/s "
+                f"({k:.3f} ms), plain {1e3 * b / p:.2f} img/s ({p:.3f} ms); "
+                f"f32 kernels {1e3 * b / f32:.2f} img/s ({f32:.3f} ms) "
+                f"[{card}]")
+    return {"counts": counts[2], "times": times,
+            "k2": [(a, "forward") for a, _, _ in k2]}
+
+
+def bf16_step_grads(model, fn, *args) -> tuple:
+    """Losses and parameter gradients of ``fn(model, *args)`` (a training
+    forward) on the bf16 cast of the model, and its backward."""
+    model.zero_grad(set_to_none=True)
+    losses = call_in_dtype(model, BF16, fn, *args)
+    losses["total"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def check_f32_masters(model, what: str) -> None:
+    bad = [n for n, t in [*model.named_parameters(), *model.named_buffers()]
+           if t.is_floating_point() and t.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{what}: master tensors not f32: {bad[:3]}")
+
+
+def bf16_maskrcnn_train(dev, tmp: Path, card: str) -> dict:
+    """do_train(compute_dtype=bf16) of Mask R-CNN R-50-FPN for TRAIN_STEPS
+    iterations at B = 2 on the 800x1344 canvas (phase 9's weights and
+    data): launches per step (K2 and K3 in bf16), finite losses, the
+    masters f32, the frozen stages still and the rest moved, the
+    checkpoint's .pth and .npz read back; one step through the kernels
+    and the plain versions (two runs each) by relative L2 per gradient
+    (BF16_STEP_FLOOR, BF16_STEP_CAP); the bf16 step timed beside the f32
+    one."""
+    from tpuseg_torch.kernels import roi_align as roi_kernel
+
+    cfg = M.MaskRCNNConfig()
+    model = M.build_model(cfg)
+    sd = synthetic_state_dict(model, SEED + 7)
+    sd["backbone.body.stem.bn1.running_var"] *= PIXEL_VAR
+    model.load_state_dict(sd, strict=True)
+    data = SyntheticDataset(SEED + 7)
+    model = model.to(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    out_dir = tmp / "bf16_maskrcnn"
+    kernels.reset_launch_counts()
+    with quiet():
+        model, it, history = TL.do_train(
+            data, cfg, model=model, max_steps=TRAIN_STEPS, ims_per_batch=2,
+            checkpoint_period=TRAIN_STEPS, log_every=TRAIN_STEPS,
+            output_dir=str(out_dir), device=dev, compute_dtype=BF16)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: TRAIN_STEPS * v for k, v in PER_STEP.items()}
+    if it != TRAIN_STEPS or counts != want:
+        raise AssertionError(f"bf16 Mask R-CNN: {it} iterations launched "
+                             f"{counts}; want {want}")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"bf16 Mask R-CNN: losses not finite: {history}")
+    check_f32_masters(model, "bf16 Mask R-CNN")
+    frozen, trainable = check_moved(model, before, "bf16 Mask R-CNN")
+    ckpt = out_dir / f"model_{TRAIN_STEPS:07d}"
+    M.build_model(cfg).load_state_dict(torch.load(
+        f"{ckpt}.pth", weights_only=True)["model"], strict=True)
+    n_npz = npz_round_trip(Path(f"{ckpt}.npz"), TL.jax_tree(model),
+                           lambda t: FJ.state_dict_from_jax(t, cfg),
+                           model.state_dict())
+    log(f"[17 bf16 train] do_train(compute_dtype=bf16) {it} iterations at "
+        f"B = 2 on {CANVAS[0]}x{CANVAS[1]}: launches {counts} ({PER_STEP} "
+        f"per step); total loss {[round(h['total'], 4) for h in history]}; "
+        f"masters f32; {len(frozen)} frozen tensors still, {len(trainable)} "
+        f"trainable moved; model_{TRAIN_STEPS:07d}.pth loads strict, its "
+        f".npz ({n_npz} arrays) reads back equal")
+
+    rng = np.random.default_rng(SEED + 8)
+    batch = TL.batch_to_device([TL.build_train_example(data, i, rng=rng)
+                                for i in data.image_ids[:2]], dev)
+    images, image_hw, targets = batch
+
+    def grads():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        return bf16_step_grads(model, TL.train_losses, images.to(BF16),
+                               image_hw, targets, gen)
+
+    with exact_convs():
+        kernels.reset_launch_counts()
+        with recording_calls(roi_kernel, "multilevel_roi_align") as k2, \
+                recording_calls(roi_kernel,
+                                "multilevel_roi_align_backward") as k3:
+            runs = [grads()]
+        path_counts = kernels.launch_counts()
+        runs.append(grads())
+        with kernels.force_plain():
+            runs += [grads() for _ in range(2)]
+        torch.cuda.synchronize()
+    if path_counts != PER_STEP:
+        raise AssertionError(f"bf16 Mask R-CNN kernel-path step launched "
+                             f"{path_counts}")
+    log(f"[17 bf16 train] one bf16 step, kernels vs plain (TF32 off, "
+        f"deterministic cuDNN; relative L2 within ten times either path's "
+        f"own spread, at least {BF16_STEP_FLOOR:g}, at most "
+        f"{BF16_STEP_CAP:g}): " + compare_train_mode(
+            *runs, floor=BF16_STEP_FLOOR, cap=BF16_STEP_CAP, what="bf16"))
+    times = {}
+    for dt in (None, BF16):
+        label = "bf16" if dt else "f32"
+        times[f"maskrcnn train step {label} B=2"] = time_train_step(
+            model, batch, f"[17 timing] Mask R-CNN train step {label}", card,
+            compute_dtype=dt)
+    return {"counts": counts, "times": times,
+            "k2": [(a, "training") for a, _, _ in k2],
+            "k3": [a for a, _, _ in k3]}
+
+
+def bf16_yolact_train(dev, tmp: Path, card: str) -> dict:
+    """yolact_train_loop.train(compute_dtype=bf16) of YOLACT++-550 R-50 at
+    B = 8 (train-mode BatchNorm; phase 11's weights and data): 13 K4 + 13
+    K4c launches per step in bf16, finite losses, the masters f32, every
+    parameter moved, every f32 running statistic updated, the npz
+    checkpoint read back; one step, kernels vs plain (two runs each), by
+    relative L2 per gradient within ten times either path's own spread
+    between its runs, bounded by BF16_STEP_FLOOR and BF16_TRAIN_MODE_CAP;
+    the bf16 step timed beside the f32 one."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+
+    name = "yolact_plus_resnet50"
+    cfg, loss_cfg = yolact_model_config(name), yolact_loss_config(name)
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(
+        model, SEED + 11, offset_scale=TRAIN_OFFSET_SCALE), strict=True)
+    data = SyntheticYolactDataset(SEED + 11)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kernels.reset_launch_counts()
+    with quiet():
+        model, it, history = YTL.train(
+            data, cfg, batch_size=YOLACT_BATCH,
+            max_steps=YOLACT_TRAIN_STEPS, save_every=YOLACT_TRAIN_STEPS,
+            save_folder=str(tmp / "bf16_yolact"), cfg_name=name,
+            log_every=YOLACT_TRAIN_STEPS, loss_cfg=loss_cfg, model=model,
+            device=dev, save_format="npz", compute_dtype=BF16)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: YOLACT_TRAIN_STEPS * v for k, v in YOLACT_PER_STEP.items()}
+    if it != YOLACT_TRAIN_STEPS or counts != want:
+        raise AssertionError(f"bf16 YOLACT++: {it} iterations launched "
+                             f"{counts}; want {want}")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"bf16 YOLACT++: losses not finite: {history}")
+    check_f32_masters(model, "bf16 YOLACT++")
+    after = {k: v.cpu() for k, v in model.state_dict().items()}
+    still = [n for n, _ in model.named_parameters()
+             if torch.equal(after[n], before[n])]
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    stale = [k for k in stats if torch.equal(after[k], before[k])]
+    if still or stale or model.freeze_bn:
+        raise AssertionError(f"bf16 YOLACT++: parameters that did not move: "
+                             f"{still}; running statistics not updated: "
+                             f"{stale}")
+    path = Path(ckpt_path(str(tmp / "bf16_yolact"), name,
+                          it // (len(data.image_ids) // YOLACT_BATCH), it,
+                          "npz"))
+    n_npz = npz_reads_back(
+        path, lambda t: FJ.yolact_state_dict_from_jax(t, cfg), after)
+    n_params = sum(1 for _ in model.parameters())
+    log(f"[17 bf16 yolact_train] train(compute_dtype=bf16) {it} iterations "
+        f"at B = {YOLACT_BATCH}, {cfg.img_size}x{cfg.img_size}, train-mode "
+        f"BatchNorm: launches {counts}; losses "
+        + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in h.items())
+                    for h in history)
+        + f"; masters f32, all {n_params} parameters moved, {len(stats)} "
+        f"f32 running statistics updated; "
+        f"{path.name} ({n_npz} arrays) reads back equal")
+
+    rng = np.random.default_rng(SEED + 12)
+    images, targets = YTL.batch_to_device(
+        *next(YTL.batch_iterator(data, cfg, rng, YOLACT_BATCH)), dev)
+    priors = torch.from_numpy(YM.make_priors_np(cfg)).to(dev)
+    draws = torch.rand((YOLACT_BATCH, priors.shape[0]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 13))
+
+    def grads():
+        return bf16_step_grads(model, YTL.train_losses, images.to(BF16),
+                               targets, priors, draws, loss_cfg, BF16)
+
+    # the DCNs' biases: each DCN feeds a train-mode BatchNorm, whose batch
+    # mean cancels a per-channel bias (the backbone's other convs have none)
+    dcn_biases = [n for n, _ in model.named_parameters()
+                  if n.startswith("backbone.") and n.endswith("conv2.bias")]
+
+    with exact_convs():
+        kernels.reset_launch_counts()
+        with recording_calls(dcn_kernel, "sample_points") as k4, \
+                recording_calls(dcn_kernel, "sample_points_backward") as k4c:
+            runs = [grads()]
+        path_counts = kernels.launch_counts()
+        runs.append(grads())
+        with kernels.force_plain():
+            runs += [grads() for _ in range(2)]
+        torch.cuda.synchronize()
+    if path_counts != YOLACT_PER_STEP:
+        raise AssertionError(f"bf16 YOLACT++ kernel-path step launched "
+                             f"{path_counts}")
+    log(f"[17 bf16 yolact_train] one bf16 step, train-mode BatchNorm, "
+        f"kernels vs plain (TF32 off, deterministic cuDNN; relative L2 "
+        f"within ten times either path's own spread, at least "
+        f"{BF16_STEP_FLOOR:g}, at most {BF16_TRAIN_MODE_CAP:g}): "
+        + compare_train_mode(*runs, floor=BF16_STEP_FLOOR,
+                             cap=BF16_TRAIN_MODE_CAP, what="bf16 train-mode",
+                             cancelled=dcn_biases))
+    times = {}
+    for dt in (None, BF16):
+        opt = make_yolact_optimizer(model)
+        lr = yolact_lr_schedule()(0)
+
+        def step():
+            YTL.train_step(model, opt, lr, images, targets, priors, draws,
+                           loss_cfg, dt)
+
+        k1 = cuda_time_ms(step, iters=5, warmup=2)
+        with kernels.force_plain():
+            p = cuda_time_ms(step, iters=2, warmup=1)
+        k2 = cuda_time_ms(step, iters=5, warmup=0)
+        k = (k1 + k2) / 2
+        label = "bf16" if dt else "f32"
+        times[f"yolact train step {label} B={YOLACT_BATCH}"] = (k, p)
+        log(f"[17 timing] YOLACT++ train step {label} B={YOLACT_BATCH} "
+            f"{cfg.img_size}x{cfg.img_size}: kernels {k:.3f} ms "
+            f"({1e3 * YOLACT_BATCH / k:.2f} img/s; two runs of 5: "
+            f"{k1:.3f}, {k2:.3f}), plain {p:.3f} ms [{card}]")
+    return {"counts": counts, "times": times,
+            "k4": [a for a, _, _ in k4],
+            "k4c": [a for a, _, _ in k4c]}
+
+
+def darknet_yolact(dev, tmp: Path, card: str) -> dict:
+    """YOLACT-550 DarkNet53-FPN through YolactPredictor, f32 and bf16, B =
+    1 and 8, on synthetic upstream-keyed weights (no launch: no DCN, and
+    Fast-NMS is torch); the raw predictions on the card against the same
+    model on the CPU (TF32 off, 1e-4 of max|ref|); one bf16 yolact_train
+    step of the preset through its CLI on a COCO dataset on disk, its npz
+    checkpoint read back; the forward and run_batch timed."""
+    from tpuseg_torch.tools import yolact_train
+
+    name = "yolact_darknet53"
+    cfg = yolact_model_config(name)
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(model, SEED + 41),
+                          strict=True)
+    images = yolact_images(SEED + 41, 8, cfg.img_size)
+    x = yolact_preprocess(torch.from_numpy(images).to(dev), cfg.img_size)
+    model = model.to(dev)
+    shift = calibrate_yolact_gate(model, x, want=(10, 500), margin=0.0)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    preds = {dt: YolactPredictor(cfg, state_dict=sd, batch_size=8, dtype=dt,
+                                 device=dev)
+             for dt in (torch.float32, BF16)}
+    lines, none = [], per({})
+    for dt, pred in preds.items():
+        for b in (1, 8):
+            kernels.reset_launch_counts()
+            det = pred.run_batch(images[:b])
+            torch.cuda.synchronize()
+            if kernels.launch_counts() != none:
+                raise AssertionError(f"DarkNet YOLACT {dt} B={b} launched "
+                                     f"{kernels.launch_counts()}")
+            lines.append(f"{str(dt)[6:]} B={b}: detections "
+                         f"{check_yolact(pred, det, b)}")
+    with exact_convs(), torch.inference_mode():
+        card_preds = {k: v.float().cpu()
+                      for k, v in preds[torch.float32].model(x[:1]).items()}
+        bf16_preds = {k: v.float().cpu()
+                      for k, v in preds[BF16].model(x[:1].to(BF16)).items()}
+    cpu = YM.build_model(cfg)
+    cpu.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        ref = cpu(x[:1].cpu())
+    del cpu
+    errs, bf16_errs = {}, {}
+    for k, w in ref.items():
+        scale = float(w.abs().max())
+        errs[k] = float((card_preds[k] - w).abs().max()) / scale
+        bf16_errs[k] = float((bf16_preds[k] - w).abs().max()) / scale
+        if not errs[k] <= 1e-4:
+            raise AssertionError(f"DarkNet YOLACT {k}: card vs CPU "
+                                 f"{errs[k]:.3g} of max|ref|")
+    img_dir, ann, _ = write_coco_dataset(tmp / "coco", SEED + 20)
+    save = tmp / "darknet_ckpt"
+    history, launched, wall, _, _ = run_cli(yolact_train.main, [
+        "--config", f"{name}_config", "--train_images", img_dir,
+        "--train_info", ann, "--batch_size", str(YOLACT_BATCH),
+        "--max_steps", "1", "--save_interval", "1", "--save_folder",
+        str(save), "--save_format", "npz", "--compute_dtype", "bfloat16",
+        "--device", "cuda"])
+    if len(history) != 1 or not all(np.isfinite(v)
+                                    for v in history[0].values()):
+        raise AssertionError(f"yolact_train DarkNet bf16: {history}")
+    if launched != none:
+        raise AssertionError(f"yolact_train DarkNet launched {launched}")
+    written = list(save.glob(f"{name}_*_1.npz"))
+    fresh = YM.build_model(cfg)
+    fresh.load_state_dict(FJ.yolact_state_dict_from_jax(
+        load_params_npz(str(written[0])), cfg), strict=True)
+    log(f"[17 darknet] YolactPredictor, {name} at {cfg.img_size}x"
+        f"{cfg.img_size} (background logit +{shift:.2f}): no launch; "
+        + "; ".join(lines)
+        + "; raw predictions, card vs CPU, f32 B=1 (TF32 off): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + " of max|ref|; bf16 vs the CPU's f32 (not a gate): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in bf16_errs.items())
+        + f"; yolact_train --config {name}_config --compute_dtype bfloat16 "
+        f"B={YOLACT_BATCH}: losses "
+        + ", ".join(f"{k} {v:.4g}" for k, v in history[0].items())
+        + f" in {wall:.1f} s, {written[0].name} loads strict")
+    times = {}
+    with torch.inference_mode():
+        raw = torch.from_numpy(images).to(dev)
+        for dt, pred in preds.items():
+            for b in (1, 8):
+                xb = x[:b].to(dt)
+                for label, fn in (("forward", lambda: pred.model(xb)),
+                                  ("run_batch",
+                                   lambda: pred.run_batch(raw[:b]))):
+                    t = cuda_time_ms(fn, iters=5)
+                    times[f"darknet yolact {label} {str(dt)[6:]} B={b}"] = (t,)
+                    log(f"[17 timing] YOLACT DarkNet-53 {label} "
+                        f"{str(dt)[6:]} B={b} {cfg.img_size}x{cfg.img_size}: "
+                        f"{1e3 * b / t:.2f} img/s ({t:.3f} ms) [{card}]")
+    return {"counts": {"darknet_yolact_inference": none,
+                       "cli_yolact_train_darknet_bf16": launched},
+            "times": times}
+
+
+def bf16_kernel_shapes(k2: list, k3: list, k4: list, k4c: list,
+                       card: str) -> dict:
+    """The bf16 kernels at the bf16 paths' own inputs (the arguments the
+    paths gave the wrappers), one per distinct shape: K2 and K4 equal to
+    their plain versions bit for bit, K3 and K4c within phase 5's and 7's
+    bf16 tolerances of the plain version in f32; timed against the plain
+    version and the launch alone, with the bound and the library call ->
+    {kernel: {label: (ms, plain, bound, by, library, alone)}}."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+    from tpuseg_torch.kernels import roi_align as roi_kernel
+
+    out = {"roi_align": {}, "roi_align_bwd": {}, "dcn_sample": {},
+           "dcn_sample_bwd": {}}
+    # the forward kernels on inference tensors; the backward ones outside
+    # inference mode, where grid_sample's backward can build its graph
+    with torch.inference_mode():
+        for args, path in k2:
+            feats, boxes, bidx, levels, p = args[:5]
+            label = (f"bf16 N={boxes.shape[0]} P={p}: Mask R-CNN FPN "
+                     f"{path}")
+            if not torch.equal(roi_kernel.multilevel_roi_align(*args),
+                               sampling.multilevel_roi_align_plain(*args)):
+                raise AssertionError(f"roi_align {label}: not equal")
+            k, pl = time_pair(lambda: sampling.multilevel_roi_align(*args),
+                              iters=10)
+            alone = cuda_time_ms(lambda: roi_kernel.multilevel_roi_align(
+                *args), 10)
+            out["roi_align"][label] = (k, pl) + roi_fwd_bound(
+                (None, boxes, bidx, levels), p, 2) + (None, alone)
+        seen = set()  # one call per distinct shape
+        for args in k4:
+            feats, sy, sx, m = args
+            key = (tuple(feats.shape), sy.shape[1])
+            if key in seen:
+                continue
+            seen.add(key)
+            b, c, h, w = feats.shape
+            label = (f"bf16 B={b} {h}x{w}x{c} S={sy.shape[1]}: YOLACT++ "
+                     "training")
+            if not torch.equal(dcn_kernel.sample_points(*args),
+                               sampling.sample_points_plain(*args)):
+                raise AssertionError(f"dcn_sample {label}: not equal")
+            k, pl = time_pair(lambda: sampling.sample_points(*args), iters=10)
+            alone = cuda_time_ms(lambda: dcn_kernel.sample_points(*args), 10)
+            lib = cuda_time_ms(lambda: grid_sample_points(*args), iters=10)
+            out["dcn_sample"][label] = ((k, pl) + dcn_bound(feats, sy, sx)
+                                        + (lib, alone))
+    for args in k3:
+        grad, boxes, bidx, levels, shapes, dt, p = args[:7]
+        label = f"bf16 N={boxes.shape[0]} P={p}: Mask R-CNN FPN training"
+        with torch.no_grad():
+            want = sampling.multilevel_roi_align_backward_plain(
+                grad.float(), boxes, bidx, levels, shapes, torch.float32,
+                *args[6:])
+            bwd_error(roi_kernel.multilevel_roi_align_backward(*args), want,
+                      BF16, f"roi_align_bwd {label}")
+        k, pl = time_pair(lambda: sampling.multilevel_roi_align_backward(
+            *args), iters=10)
+        alone = cuda_time_ms(
+            lambda: roi_kernel.multilevel_roi_align_backward(*args), 10)
+        out["roi_align_bwd"][label] = (k, pl) + roi_bwd_bound(
+            boxes.shape[0], p, 2) + (None, alone)
+    seen = set()
+    for args in k4c:
+        grad, feats, sy, sx, m = args[:5]
+        key = (tuple(feats.shape), sy.shape[1])
+        if key in seen:
+            continue
+        seen.add(key)
+        b, c, h, w = feats.shape
+        label = (f"bf16 B={b} {h}x{w}x{c} S={sy.shape[1]}: YOLACT++ "
+                 "training")
+        with torch.no_grad():
+            want = sampling.sample_points_backward_plain(
+                grad.float(), feats.float(), sy, sx, m, *args[5:])
+            dcn_bwd_error(dcn_kernel.sample_points_backward(*args), want,
+                          BF16, f"dcn_sample_bwd {label}")
+        k, pl = time_pair(lambda: sampling.sample_points_backward(*args),
+                          iters=10)
+        alone = cuda_time_ms(
+            lambda: dcn_kernel.sample_points_backward(*args), 10)
+        lib = cuda_time_ms(grid_sample_backward(feats, sy, sx, m, grad),
+                           iters=10)
+        out["dcn_sample_bwd"][label] = ((k, pl)
+                                        + dcn_bwd_bound(feats, sy, sx)
+                                        + (lib, alone))
+    for kname, shapes in out.items():
+        for label, t in shapes.items():
+            lib = "none" if t[4] is None else f"{t[4]:.4f} ms"
+            log(f"[17 timing] {kname} {label}: kernel {t[0]:.4f} ms (the "
+                f"kernel launch alone {t[5]:.4f} ms), plain {t[1]:.4f} ms, "
+                f"bound {t[2]:.4g} ms by {t[3]}, library {lib} [{card}]")
+    return out
+
+
+def pose2seg_npz(tmp: Path) -> str:
+    """Pose2Seg's JAX tree through save_pose2seg_checkpoint (an .npz path)
+    and back through load_pose2seg_weights."""
+    cfg = P2S.Pose2SegConfig()
+    model = P2S.build_model(cfg)
+    model.load_state_dict(synthetic_pose2seg_state_dict(cfg, SEED + 42),
+                          strict=True)
+    path = tmp / "pose2seg_last.npz"
+    P2SE.save_pose2seg_checkpoint(str(path), model)
+    back, _ = load_pose2seg_weights(str(path), cfg)
+    if not all(torch.equal(back[k], v) for k, v in model.state_dict().items()
+               if not k.endswith("num_batches_tracked")):
+        raise AssertionError("Pose2Seg npz does not read back")
+    with np.load(path) as f:
+        return f"{len(f.files)} arrays"
+
+
+def phase_bf16(dev, tmp: Path, card: str) -> dict:
+    t0 = time.perf_counter()
+    counts, times, k2 = {}, {}, []
+    for name in BF16_FAMILY:
+        res = bf16_family_inference(name, dev, tmp, card)
+        counts[f"bf16_{name}_inference"] = res["counts"]
+        times.update(res["times"])
+        if name == "maskrcnn":
+            k2 += res["k2"]
+        torch.cuda.empty_cache()
+    train = bf16_maskrcnn_train(dev, tmp, card)
+    counts["bf16_maskrcnn_training"] = train["counts"]
+    times.update(train["times"])
+    torch.cuda.empty_cache()
+    yolact = bf16_yolact_train(dev, tmp, card)
+    counts["bf16_yolact_training"] = yolact["counts"]
+    times.update(yolact["times"])
+    torch.cuda.empty_cache()
+    darknet = darknet_yolact(dev, tmp, card)
+    counts.update(darknet["counts"])
+    times.update(darknet["times"])
+    log(f"[17 npz] Pose2Seg through save_pose2seg_checkpoint(.npz) and "
+        f"load_pose2seg_weights: {pose2seg_npz(tmp)} read back equal")
+    shapes = bf16_kernel_shapes(k2 + train["k2"], train["k3"], yolact["k4"],
+                                yolact["k4c"], card)
+    log(f"[17 total] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return {"counts": counts, "times": times, "shapes": shapes}
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -4265,6 +4973,10 @@ def main() -> int:
     times.update(yolo["times"])
     times.update(vit["times"])
     log(f"[16 total] phase 16 in {time.perf_counter() - t16:.1f} s")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16 = phase_bf16(dev, Path(tmp), card)
+    times.update(bf16["times"])
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
@@ -4276,8 +4988,10 @@ def main() -> int:
         bf16, three training steps and its CLIs' runs; phase 16's: YOLOv3's
         run_batch at B = 1 and 8 in f32 and bf16, evaluate_coco_boxes over
         16 images, three training steps and its CLIs' runs, ViT-B/16's
-        classifier and forwards, three training steps and its CLIs'
-        runs."""
+        classifier and forwards, three training steps and its CLIs' runs;
+        phase 17's: one bf16 B = 2 forward of each detectron model, three
+        bf16 training steps of Mask R-CNN and of YOLACT++, the DarkNet
+        YOLACT forward and its bf16 training CLI."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
@@ -4288,15 +5002,20 @@ def main() -> int:
                 **{path: n[name] for path, n in family["counts"].items()},
                 **{path: n[name] for path, n in pose2seg["counts"].items()},
                 **{path: n[name] for path, n in yolo["counts"].items()},
-                **{path: n[name] for path, n in vit["counts"].items()}}
+                **{path: n[name] for path, n in vit["counts"].items()},
+                **{path: n[name] for path, n in bf16["counts"].items()}}
 
     def pose2seg_shapes(prefix: str) -> dict:
         return {label: shape_entry(t)
                 for label, t in pose2seg["shapes"].items()
                 if label.startswith(prefix + " ")}
 
+    def bf16_shapes(name: str) -> dict:
+        return {f"{name} {label}": shape_entry(t)
+                for label, t in bf16["shapes"][name].items()}
+
     log(f"[total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 16 (the kernels' build included)")
+        "main to the end of phase 17 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
@@ -4310,32 +5029,37 @@ def main() -> int:
          "shapes": {label: shape_entry(t)
                     for label, t in {**family["nms"],
                                      **yolo["nms"]}.items()}},
-        kernel_entry("roi_align", "tpuseg_torch/csrc/roi_align.cu",
-                     "tpuseg/ops/pallas/roi_align_pl.py:576",
-                     launches("roi_align"), roi_res["max_abs_err"],
-                     times["roi_align float32 N=2000 P=7"]),
+        # K2, K3, K4 and K4c also at the bf16 paths' shapes (phase 17),
+        # and K4 and K4c at Pose2Seg's (phase 15), on the inputs the paths
+        # gave them
+        {**kernel_entry("roi_align", "tpuseg_torch/csrc/roi_align.cu",
+                        "tpuseg/ops/pallas/roi_align_pl.py:576",
+                        launches("roi_align"), roi_res["max_abs_err"],
+                        times["roi_align float32 N=2000 P=7"]),
+         "shapes": bf16_shapes("roi_align")},
         {**kernel_entry("roi_align_bwd",
                         "tpuseg_torch/csrc/roi_align_bwd.cu",
                         "tpuseg/ops/pallas/roi_align_pl.py:390",
                         launches("roi_align_bwd"), bwd_res["max_abs_err"],
                         times[k3]),
-         "kernel_alone_direct_ms": times[k3 + " direct"]},
-        # K4 and K4c also at Pose2Seg's shapes (phase 15), on the inputs
-        # the path gave them
+         "kernel_alone_direct_ms": times[k3 + " direct"],
+         "shapes": bf16_shapes("roi_align_bwd")},
         {**kernel_entry("dcn_sample", "tpuseg_torch/csrc/dcn_sample.cu",
                         ["tpuseg/ops/pallas/dcn_pl.py:60",
                          "tpuseg/ops/pallas/dcn_pl.py:212"],
                         launches("dcn_sample"), dcn_res["max_abs_err"],
                         times[f"dcn_sample float32 B={DCN_BATCH} "
                               "69x69x128 s1"]),
-         "shapes": pose2seg_shapes("dcn_sample")},
+         "shapes": {**pose2seg_shapes("dcn_sample"),
+                    **bf16_shapes("dcn_sample")}},
         {**kernel_entry("dcn_sample_bwd",
                         "tpuseg_torch/csrc/dcn_sample_bwd.cu",
                         "tpuseg/ops/pallas/dcn_pl.py:311",
                         launches("dcn_sample_bwd"),
                         dcn_bwd_res["max_abs_err"], times[k4c]),
          "kernel_alone_split_ms": times[k4c + " split"],
-         "shapes": pose2seg_shapes("dcn_sample_bwd")},
+         "shapes": {**pose2seg_shapes("dcn_sample_bwd"),
+                    **bf16_shapes("dcn_sample_bwd")}},
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ import dataclasses
 import json
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,15 +16,20 @@ from PIL import Image
 
 from tpuseg.data.coco_dataset import CocoDetectionDataset as JDataset
 from tpuseg.engine import maskrcnn_engine as J_ME
+from tpuseg.engine import trainer as J_T
 from tpuseg.engine import yolact_engine as J_YE
 from tpuseg.engine.config import ConfigNode as JConfigNode
 from tpuseg.eval import rle as J_R
+from tpuseg.models import yolact as J_Y
 from tpuseg_torch.configs import presets
 from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
 from tpuseg_torch.engine import maskrcnn_engine as ME
 from tpuseg_torch.engine import yolact_engine as YE
 from tpuseg_torch.engine.config import ConfigNode
+from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.tools import yolact_eval, yolact_train
+from tpuseg_torch.weights.from_jax import yolact_state_dict_from_jax
+from tpuseg_torch.weights.npz_io import load_params_npz
 
 torch.set_num_threads(2)  # pytest-xdist's workers share the CPU's cores
 ROOT = Path(__file__).resolve().parent.parent
@@ -276,7 +282,7 @@ def test_yolact_eval_cli_on_cpu(coco, small_yolact, tmp_path, monkeypatch,
     assert yolact_eval.infer_config_name(
         "w/yolact_plus_resnet50_54_800000.pth", None) == (
             "yolact_plus_resnet50_config")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
         yolact_eval.main(["--devices", "2", "--device=cpu"])
 
 
@@ -292,8 +298,27 @@ def test_yolact_train_cli_on_cpu(coco, small_yolact, tmp_path, capsys):
     assert all(np.isfinite(v) for v in history[0].values())
     assert (tmp_path / "yolact_plus_resnet50_0_1.pth").exists()
     assert "1 iterations; last losses: B" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="pth"):
-        yolact_train.main(["--save_format", "npz", "--device=cpu"])
+    # bf16 mixed precision and the JAX tree's npz, which tpuseg's
+    # load_params_npz reads on its own template and the port reads back
+    history = yolact_train.main([
+        "--config", "yolact_plus_resnet50_config", "--train_images",
+        img_dir, "--train_info", ann, "--batch_size", "2", "--max_steps",
+        "1", "--save_interval", "1", "--save_folder", str(tmp_path),
+        "--save_format", "npz", "--compute_dtype", "bfloat16",
+        "--device=cpu"])
+    assert all(np.isfinite(v) for v in history[0].values())
+    path = str(tmp_path / "yolact_plus_resnet50_0_1.npz")
+    cfg = presets.yolact_model_config("yolact_plus_resnet50")
+    jcfg = J_Y.YolactConfig(**{f.name: getattr(cfg, f.name)
+                               for f in dataclasses.fields(cfg)})
+    like = jax.eval_shape(lambda: J_Y.init_params(jax.random.PRNGKey(0),
+                                                  jcfg))
+    tree = J_T.load_params_npz(path, like)
+    for got, want in zip(jax.tree.leaves(tree), jax.tree.leaves(like)):
+        assert got.shape == want.shape and got.dtype == np.float32
+    model = Y.build_model(cfg)
+    model.load_state_dict(yolact_state_dict_from_jax(
+        load_params_npz(path), cfg), strict=True)
 
 
 def test_clis_default_to_the_card(coco):

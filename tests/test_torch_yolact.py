@@ -41,7 +41,8 @@ def _jcfg(cfg: Y.YolactConfig) -> JY.YolactConfig:
 
 
 @pytest.mark.parametrize("name", ["yolact_base", "yolact_im400",
-                                  "yolact_plus_base", "yolact_plus_resnet50"])
+                                  "yolact_plus_base", "yolact_plus_resnet50",
+                                  "yolact_darknet53"])
 def test_presets_and_priors_match_jax(name):
     cfg = yolact_model_config(name)
     jcfg = JP.yolact_model_config(getattr(JP, f"{name}_config"))
@@ -49,11 +50,6 @@ def test_presets_and_priors_match_jax(name):
     assert Y.level_sizes(cfg) == JY.level_sizes(jcfg)
     np.testing.assert_array_equal(Y.make_priors_np(cfg),
                                   JY.make_priors_np(jcfg))
-
-
-def test_darknet_preset_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        yolact_model_config("yolact_darknet53_config")
 
 
 def test_ssd_decode_and_crop_match_jax(rng):

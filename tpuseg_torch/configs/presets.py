@@ -96,11 +96,8 @@ DATASETS = {
 
 def yolact_model_config(preset) -> YolactConfig:
     """A preset (its name, with or without upstream's ``_config`` suffix,
-    or its dict) -> YolactConfig. DarkNet-53 is not ported yet."""
+    or its dict) -> YolactConfig."""
     cfg = _preset(preset)
-    if not cfg["backbone"].startswith("resnet"):
-        raise NotImplementedError(
-            f"{cfg['name']}: backbone {cfg['backbone']} is not ported yet")
     return YolactConfig(
         backbone=cfg["backbone"], img_size=cfg["max_size"],
         num_classes=cfg["num_classes"], mask_dim=cfg["mask_dim"],

@@ -3,7 +3,10 @@
 R-CNN and Faster R-CNN over FPN or C4, and RetinaNet, by the model's config.
 
 Iteration-based to SOLVER.MAX_ITER with WarmupMultiStepLR, periodic
-``model_{iter:07d}.pth`` checkpoints and MetricLogger-style console lines.
+checkpoints and MetricLogger-style console lines. Each checkpoint is
+written twice: ``model_{iter:07d}.pth`` in maskrcnn-benchmark's layout and
+``model_{iter:07d}.npz``, the JAX package's param tree (its loop writes
+that one), so that either package reads it back.
 The host builds each batch on one canvas orientation with padded targets,
 including each gt's mask cropped to its box for the mask loss (112x112
 crops, pooled to the FPN's 28x28 targets or C4's 14x14; boxes-only models
@@ -24,10 +27,14 @@ import numpy as np
 import torch
 
 from tpuseg_torch.engine.maskrcnn_engine import (build_model, model_module,
-                                                 preprocess_image_bgr)
-from tpuseg_torch.engine.trainer import (make_optimizer, save_checkpoint,
-                                         set_lr, warmup_multistep_lr)
+                                                 preprocess_image_bgr,
+                                                 variant_of)
+from tpuseg_torch.engine.trainer import (call_in_dtype, make_optimizer,
+                                         save_checkpoint, set_lr,
+                                         warmup_multistep_lr)
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.weights import from_jax
+from tpuseg_torch.weights.npz_io import save_params_npz
 
 
 class MovingAverage:
@@ -124,11 +131,18 @@ def train_losses(model, images: torch.Tensor, image_hw: torch.Tensor,
 
 
 def train_step(model, optimizer, lr: float, images: torch.Tensor,
-               image_hw: torch.Tensor, targets: dict, generator=None) -> dict:
+               image_hw: torch.Tensor, targets: dict, generator=None,
+               compute_dtype: torch.dtype | None = None) -> dict:
     """One SGD step at ``lr`` on one batch -> the detached losses (on the
-    device: reading them is the caller's synchronisation)."""
+    device: reading them is the caller's synchronisation).
+    ``compute_dtype`` (bf16) is the JAX loop's mixed precision: the
+    forward and backward on a cast of the model and the images, the f32
+    masters in the optimizer; the losses take f32 logits."""
     set_lr(optimizer, lr)
-    losses = train_losses(model, images, image_hw, targets, generator)
+    if compute_dtype is not None:
+        images = images.to(compute_dtype)
+    losses = call_in_dtype(model, compute_dtype, train_losses, images,
+                           image_hw, targets, generator)
     optimizer.zero_grad(set_to_none=True)
     losses["total"].backward()
     optimizer.step()
@@ -146,11 +160,24 @@ def batch_to_device(examples, dev) -> tuple:
             targets)
 
 
+def jax_tree(model) -> dict:
+    """The JAX package's param tree of a detectron model of any variant
+    (numpy f32 leaves), as its loop writes it to npz."""
+    variant = variant_of(model.cfg)
+    sd = model.state_dict()
+    if variant == "c4":
+        return from_jax.c4_jax_from_state_dict(sd)
+    if variant == "retinanet":
+        return from_jax.retinanet_jax_from_state_dict(sd)
+    return from_jax.jax_from_state_dict(sd, model.cfg)
+
+
 def do_train(dataset, cfg=None, model=None,
              base_lr=0.0025, steps=(120000, 160000), max_iter=180000,
              ims_per_batch=2, checkpoint_period=2500,
              output_dir="weights/detectron", log_every=20, max_steps=None,
-             seed=3, device="cuda", min_size=800, max_size=1333):
+             seed=3, device="cuda", min_size=800, max_size=1333,
+             compute_dtype: torch.dtype | None = None):
     """Train a detectron model on ``device`` (the card unless the caller
     asks for ``"cpu"``) -> (model, iterations run, per-iteration loss dicts).
 
@@ -165,7 +192,7 @@ def do_train(dataset, cfg=None, model=None,
     ``torch.Generator`` on ``device`` seeded with ``seed``. Batches are
     bucketed by orientation so each shares one canvas; buckets persist
     across passes (a dataset with fewer images of one orientation than a
-    batch still trains).
+    batch still trains). ``compute_dtype`` bf16: see :func:`train_step`.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -201,7 +228,7 @@ def do_train(dataset, cfg=None, model=None,
                  for i in chunk], dev)
             t0 = time.perf_counter()
             losses = train_step(model, opt, lr_fn(it), images, hw, targets,
-                                gen)
+                                gen, compute_dtype)
             losses = {k: float(v) for k, v in losses.items()}
             t_avg.add(time.perf_counter() - t0)
             history.append(losses)
@@ -215,9 +242,10 @@ def do_train(dataset, cfg=None, model=None,
                 print(f"iter: {it}  {terms}  time: {t_avg.get_avg():.3f}  "
                       f"eta: {eta:.1f}h", flush=True)
             if it % checkpoint_period == 0:
-                path = f"{output_dir}/model_{it:07d}.pth"
-                save_checkpoint(path, model, it)
-                print(f"saved {path}", flush=True)
+                path = f"{output_dir}/model_{it:07d}"
+                save_checkpoint(path + ".pth", model, it)
+                save_params_npz(path + ".npz", jax_tree(model))
+                print(f"saved {path}.pth and .npz", flush=True)
             if it >= max_iter or (max_steps is not None and it >= max_steps):
                 break
     return model, it, history

@@ -118,13 +118,17 @@ class MaskRCNNPredictor:
     R-50/101-FPN), "c4" (the same over R-50/101-C4) or "retinanet"; a
     ``cfg`` or a ``model`` passed in decides it instead. Weights: an
     upstream ``.pth`` (``weights``), a ready ``model``, or random weights
-    from a ``torch.Generator`` seeded with ``seed``.
+    from a ``torch.Generator`` seeded with ``seed`` (a ``model`` passed in
+    is moved and cast in place). ``dtype`` is the
+    model's (f32 or bf16): its floating tensors and the images are cast to
+    it, and the floating outputs come back in f32, as in the JAX
+    predictor.
     """
 
     def __init__(self, cfg=None, weights: str | None = None, model=None,
                  confidence_threshold: float = 0.5, min_image_size: int = 800,
                  max_image_size: int = 1333, device="cuda", seed: int = 0,
-                 variant: str = "fpn"):
+                 variant: str = "fpn", dtype: torch.dtype = torch.float32):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
@@ -137,13 +141,22 @@ class MaskRCNNPredictor:
                 model = load_detectron_weights(weights, build_model(cfg))
             else:
                 model = build_model(cfg, torch.Generator().manual_seed(seed))
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device, dtype).eval()
+        self.dtype = dtype
         self.cfg = self.model.cfg
         self.variant = variant_of(self.cfg)
         self._forward = model_module(self.cfg).forward_inference
         self.confidence_threshold = confidence_threshold
         self.min_image_size = min_image_size
         self.max_image_size = max_image_size
+
+    def forward(self, images: torch.Tensor, image_hw: torch.Tensor) -> dict:
+        """The model's ``forward_inference`` on canvases [B, 3, Hc, Wc]
+        cast to the predictor's dtype -> padded detections, floating ones
+        in f32."""
+        out = self._forward(self.model, images.to(self.dtype), image_hw)
+        return {k: v.float() if v.is_floating_point() else v
+                for k, v in out.items()}
 
     def run_on_bgr_image(self, img_bgr: np.ndarray) -> dict:
         """Single image -> final detections in original-image coords."""
@@ -166,7 +179,7 @@ class MaskRCNNPredictor:
             np.stack(canvases).transpose(0, 3, 1, 2).copy()).to(self.device)
         image_hw = torch.tensor(hws, dtype=torch.int64, device=self.device)
         with torch.inference_mode():
-            out = self._forward(self.model, images, image_hw)
+            out = self.forward(images, image_hw)
             results = []
             for i, img in enumerate(imgs_bgr):
                 h, w = img.shape[:2]
@@ -252,7 +265,7 @@ def model_config_from_node(node) -> tuple:
 def build_predictor_from_cfg(node, **kw) -> MaskRCNNPredictor:
     """ConfigNode -> MaskRCNNPredictor for its variant and model config,
     with MODEL.WEIGHT and INPUT.{MIN,MAX}_SIZE_TEST; ``kw`` goes to the
-    predictor (``device``, ``confidence_threshold``)."""
+    predictor (``device``, ``confidence_threshold``, ``dtype``)."""
     _, cfg = model_config_from_node(node)
     return MaskRCNNPredictor(
         cfg=cfg,

@@ -21,6 +21,8 @@ import torch.nn.functional as F
 
 from tpuseg_torch.data.image_io import resize_bilinear_u8
 from tpuseg_torch.models import pose2seg as P2S
+from tpuseg_torch.weights.from_jax import pose2seg_jax_from_state_dict
+from tpuseg_torch.weights.npz_io import save_params_npz
 from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
 
 PIXEL_MEAN = np.asarray([0.485, 0.456, 0.406])  # ImageNet, RGB in [0, 1]
@@ -106,10 +108,15 @@ class Pose2SegPredictor:
 
 def save_pose2seg_checkpoint(path: str, model: torch.nn.Module) -> None:
     """The model's state_dict itself, upstream's keys, CPU tensors (a torch
-    zip file); :func:`load_pose2seg_weights` reads it back."""
+    zip file); a ``path`` ending in ``.npz`` gets the JAX package's param
+    tree instead, as its ``pose2seg_train`` writes it.
+    :func:`load_pose2seg_weights` reads either back."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if path.endswith(".npz"):
+        save_params_npz(path, pose2seg_jax_from_state_dict(sd))
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path)
+    torch.save(sd, path)
 
 
 def image_keypoints(dataset, image_id: int) -> np.ndarray:

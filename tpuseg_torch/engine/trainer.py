@@ -14,6 +14,9 @@ import re
 
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
+
+from tpuseg_torch.weights.yolact_map import upstream_state_dict
 
 
 def yolact_lr_schedule(base_lr=1e-3, warmup_until=500, warmup_init=1e-4,
@@ -92,6 +95,55 @@ def save_checkpoint(path: str, model: nn.Module, iteration: int) -> None:
     torch.save({"model": sd, "iteration": iteration}, path)
 
 
+def cast_floats(model: nn.Module, dtype: torch.dtype) -> dict:
+    """The JAX ``cast_floats`` for ``torch.func.functional_call``: every
+    floating parameter and buffer of ``model`` cast to ``dtype``, by name.
+    The casts are differentiable, so the gradients come back to the f32
+    masters, which stay in the optimizer (the JAX cast's transpose).
+
+    A BatchNorm in train mode computes its batch statistics in f32 (the JAX
+    ``batch_norm`` under ``bn_train_mode``): its weight and bias are
+    rounded to ``dtype`` and kept f32, and its running statistics are left
+    out, so that torch's BatchNorm takes its mixed-precision path and
+    updates the module's own f32 buffers in place, momentum 0.1 and the
+    unbiased variance (the JAX ``bn_apply_stats``)."""
+    out = {}
+    for mname, m in model.named_modules():
+        train_bn = isinstance(m, _BatchNorm) and m.training
+        pre = f"{mname}." if mname else ""
+        for name, t in [*m.named_parameters(recurse=False),
+                        *m.named_buffers(recurse=False)]:
+            if not t.is_floating_point():
+                continue
+            if not train_bn:
+                out[pre + name] = t.to(dtype)
+            elif name in ("weight", "bias"):
+                out[pre + name] = t.to(dtype).float()
+    return out
+
+
+class _Bound(nn.Module):
+    """``fn(model, ...)`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model: nn.Module, fn):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args, **kwargs):
+        return self.fn(self.model, *args, **kwargs)
+
+
+def call_in_dtype(model: nn.Module, dtype, fn, *args, **kwargs):
+    """``fn(model, *args, **kwargs)`` on :func:`cast_floats` of ``model``
+    (``dtype`` None: on the model itself). Everything ``fn`` computes from
+    the model's tensors, the losses included, runs inside the call."""
+    if dtype is None:
+        return fn(model, *args, **kwargs)
+    cast = {f"model.{k}": v for k, v in cast_floats(model, dtype).items()}
+    return torch.func.functional_call(_Bound(model, fn), cast, args, kwargs)
+
+
 YOLACT_MOMENTUM = 0.9
 YOLACT_WEIGHT_DECAY = 5e-4  # yolact config's momentum and decay
 
@@ -111,9 +163,11 @@ def make_yolact_optimizer(model: nn.Module) -> torch.optim.SGD:
 _CKPT_RE = re.compile(r"^(?P<name>.+)_(?P<epoch>\d+)_(?P<iter>\d+)\.pth$")
 
 
-def ckpt_path(folder: str, cfg_name: str, epoch: int, iteration: int) -> str:
-    """``<folder>/<cfg>_<epoch>_<iter>.pth`` (yolact README)."""
-    return os.path.join(folder, f"{cfg_name}_{epoch}_{iteration}.pth")
+def ckpt_path(folder: str, cfg_name: str, epoch: int, iteration: int,
+              fmt: str = "pth") -> str:
+    """``<folder>/<cfg>_<epoch>_<iter>.<fmt>`` (yolact README; "npz" for
+    the JAX package's param tree)."""
+    return os.path.join(folder, f"{cfg_name}_{epoch}_{iteration}.{fmt}")
 
 
 def parse_ckpt_iter(path: str) -> int:
@@ -126,8 +180,9 @@ def parse_ckpt_iter(path: str) -> int:
 
 def save_yolact_checkpoint(path: str, model: nn.Module) -> None:
     """yolact's checkpoint: the model's state_dict itself, dbolya's keys,
-    CPU tensors (upstream ``Yolact.save_weights``); ``load_state_dict``
-    (or tpuseg's ``load_params_ckpt``) reads it back."""
+    CPU tensors (upstream ``Yolact.save_weights``);
+    ``weights/yolact_map.py::load_yolact_weights`` (or tpuseg's
+    ``load_params_ckpt``) reads it back."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path)
+    torch.save(upstream_state_dict(
+        {k: v.detach().cpu() for k, v in model.state_dict().items()}), path)

@@ -21,12 +21,15 @@ import torch
 from tpuseg_torch.data.augment import (AugmentConfig, resize_bilinear,
                                        ssd_augment)
 from tpuseg_torch.engine.detectron_train_loop import MovingAverage
-from tpuseg_torch.engine.trainer import (ckpt_path, make_yolact_optimizer,
+from tpuseg_torch.engine.trainer import (call_in_dtype, ckpt_path,
+                                         make_yolact_optimizer,
                                          parse_ckpt_iter,
                                          save_yolact_checkpoint, set_lr,
                                          yolact_lr_schedule)
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.models import yolact_loss as YL
+from tpuseg_torch.weights.from_jax import yolact_jax_from_state_dict
+from tpuseg_torch.weights.npz_io import save_params_npz
 from tpuseg_torch.weights.yolact_map import load_yolact_weights
 
 LOSS_KEYS = ("B", "C", "M", "S", "I")
@@ -98,17 +101,40 @@ def batch_to_device(images: np.ndarray, targets: dict, dev) -> tuple:
     return x, t
 
 
+def train_losses(model: Y.Yolact, images, targets, priors, draws, loss_cfg,
+                 cdt=None) -> dict:
+    """``forward_train`` and ``total_loss``; with ``cdt`` (the model's
+    compute dtype) the predictions and the semantic logits go to the loss
+    in f32, and FastMaskIoUNet runs on a ``cdt`` cast of the masks and
+    returns f32, as in ``YolactTrainer``."""
+    preds, sem = model.forward_train(images)
+    maskiou_net = model.maskiou_net
+    if cdt is not None:
+        preds = {k: v.float() for k, v in preds.items()}
+        sem = sem.float()
+        if maskiou_net is not None:
+            def maskiou_net(m, net=model.maskiou_net):
+                return net(m.to(cdt)).float()
+    return YL.total_loss(preds, sem, targets, priors, draws, loss_cfg,
+                         maskiou_net=maskiou_net)
+
+
 def train_step(model: Y.Yolact, optimizer, lr: float, images: torch.Tensor,
                targets: dict, priors: torch.Tensor, draws: torch.Tensor,
-               loss_cfg: YL.YolactLossConfig) -> dict:
+               loss_cfg: YL.YolactLossConfig,
+               compute_dtype: torch.dtype | None = None) -> dict:
     """One SGD step at ``lr``: ``forward_train``, ``total_loss`` on the
     mask-subset ``draws`` [B, N], backward, the optimizer's step -> the
     detached losses (on the device: reading them is the caller's
-    synchronisation)."""
+    synchronisation). ``compute_dtype`` (bf16) is ``YolactTrainer``'s
+    mixed precision: the forward and backward on a cast of the model and
+    the images (:func:`~tpuseg_torch.engine.trainer.cast_floats`), the f32
+    masters in the optimizer."""
     set_lr(optimizer, lr)
-    preds, sem = model.forward_train(images)
-    losses = YL.total_loss(preds, sem, targets, priors, draws, loss_cfg,
-                           maskiou_net=model.maskiou_net)
+    if compute_dtype is not None:
+        images = images.to(compute_dtype)
+    losses = call_in_dtype(model, compute_dtype, train_losses, images,
+                           targets, priors, draws, loss_cfg, compute_dtype)
     optimizer.zero_grad(set_to_none=True)
     losses["total"].backward()
     optimizer.step()
@@ -118,7 +144,8 @@ def train_step(model: Y.Yolact, optimizer, lr: float, images: torch.Tensor,
 def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
           save_every=10000, save_folder="weights/", cfg_name="yolact_base",
           resume=None, start_iter=-1, log_every=10, max_steps=None,
-          loss_cfg=None, model=None, device="cuda"):
+          loss_cfg=None, model=None, device="cuda", save_format="pth",
+          compute_dtype: torch.dtype | None = None):
     """yolact train.py's main loop on ``device`` (the card unless the
     caller asks for ``"cpu"``) -> (model, iterations run, per-iteration
     loss dicts).
@@ -132,7 +159,9 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     the batch is below 6, where yolact disables it (``freeze_bn``).
     Augmentation draws from ``numpy.random.default_rng(42)``, the
     mask-subset draws from a ``torch.Generator`` on ``device`` seeded
-    with 7."""
+    with 7. ``save_format`` "pth" writes upstream's state_dict, "npz" the
+    JAX package's param tree (``<cfg>_<epoch>_<iter>.npz``);
+    ``compute_dtype`` bf16: see :func:`train_step`."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
@@ -161,7 +190,7 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
                            device=dev)
         t0 = time.perf_counter()
         losses = train_step(model, opt, lr_fn(it), images, targets, priors,
-                            draws, loss_cfg)
+                            draws, loss_cfg, compute_dtype)
         losses = {k: float(v) for k, v in losses.items()}
         t_avg.add(time.perf_counter() - t0)
         history.append(losses)
@@ -177,7 +206,12 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
                   f"ETA: {eta / 3600:.2f}h || {t_avg.get_avg():.3f}s/it",
                   flush=True)
         if it % save_every == 0:
-            path = ckpt_path(save_folder, cfg_name, it // epoch_size, it)
-            save_yolact_checkpoint(path, model)
+            path = ckpt_path(save_folder, cfg_name, it // epoch_size, it,
+                             save_format)
+            if save_format == "npz":
+                save_params_npz(path, yolact_jax_from_state_dict(
+                    model.state_dict(), model_cfg))
+            else:
+                save_yolact_checkpoint(path, model)
             print(f"saved {path}", flush=True)
     return model, it, history

@@ -209,13 +209,14 @@ class MaskPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor, class_sel: torch.Tensor):
         """[N, in, R, R] -> [N, 2R, 2R] logits of class ``class_sel[n]``
-        only: the 1x1 conv's row for that class, as the JAX heads compute it
-        (the same values as slicing the full [N, K, 2R, 2R] output)."""
+        only: the 1x1 conv's row for that class in x's dtype, as the JAX
+        heads compute it (the same values as slicing the full [N, K, 2R,
+        2R] output)."""
         x = F.relu(self.conv5_mask(x))
         logits = self.mask_fcn_logits
-        wsel = logits.weight[class_sel, :, 0, 0]  # [N, C]
+        wsel = logits.weight[class_sel, :, 0, 0].to(x.dtype)  # [N, C]
         return (torch.einsum("nchw,nc->nhw", x, wsel)
-                + logits.bias[class_sel][:, None, None])
+                + logits.bias[class_sel].to(x.dtype)[:, None, None])
 
 
 class MaskHead(nn.Module):

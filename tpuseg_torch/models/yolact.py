@@ -1,7 +1,8 @@
 """YOLACT and YOLACT++ (port of ``tpuseg/models/yolact.py``): inference,
 and the training forward the loss of ``models/yolact_loss.py`` reads.
 
-ResNet backbone (DCNv2 in stages 2-4 for ++) -> YOLACT FPN (P3..P7) -> one
+ResNet backbone (DCNv2 in stages 2-4 for ++) or DarkNet-53 -> YOLACT FPN
+(P3..P7 from the C3-C5 taps) -> one
 shared PredictionModule (box deltas, class logits, tanh mask coefficients
 over all levels) + ProtoNet at P3 (k ReLU prototypes at twice P3's size)
 -> :func:`detect`: SSD decode, softmax, the prior gate, Fast-NMS per class
@@ -14,7 +15,9 @@ outputs plus ``valid``. Module attribute paths are dbolya/yolact's
 state_dict keys (``backbone.layers.{s}.{b}...``, ``fpn.lat_layers``,
 ``proto_net.{0,2,4,8,10}``, ``prediction_layers.0.*``,
 ``semantic_seg_conv``, ``maskiou_net.maskiou_net.*``), so an upstream
-checkpoint loads with ``strict=True``. Tensors are NCHW; the prototypes
+checkpoint loads with ``strict=True``; DarkNet-53 keeps
+``nn/darknet.py``'s names, onto which ``weights/yolact_map.py`` maps
+upstream's. Tensors are NCHW; the prototypes
 are [B, S, S, k], as upstream and the JAX package keep them.
 """
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuseg_torch.core import boxes as box_ops
+from tpuseg_torch.nn.darknet import STAGES as DARKNET_STAGES
+from tpuseg_torch.nn.darknet import DarkNet53
 from tpuseg_torch.nn.fpn import YolactFPN
 from tpuseg_torch.nn.resnet import ResNetBackbone
 from tpuseg_torch.ops import nms as nms_ops
@@ -38,7 +43,7 @@ from tpuseg_torch.ops import nms as nms_ops
 class YolactConfig:
     """The JAX ``YolactConfig``'s fields (same defaults), less the TPU-only
     ``approx_topk``."""
-    backbone: str = "resnet50"  # resnet50 | resnet101
+    backbone: str = "resnet50"  # resnet50 | resnet101 | darknet53
     img_size: int = 550
     num_classes: int = 81  # incl background
     mask_dim: int = 32
@@ -73,10 +78,9 @@ class YolactConfig:
 
     @property
     def depth(self) -> int:
-        if not self.backbone.startswith("resnet"):
-            raise NotImplementedError(
-                f"backbone {self.backbone!r}: not ported yet (ResNet only)")
-        return int(self.backbone[6:])
+        """The ResNet's depth, or DarkNet's 53."""
+        return int(self.backbone.removeprefix("resnet")
+                   .removeprefix("darknet"))
 
 
 def level_sizes(cfg: YolactConfig) -> tuple:
@@ -200,11 +204,16 @@ class Yolact(nn.Module):
         super().__init__()
         self.cfg = cfg
         depth = cfg.depth
-        self.backbone = ResNetBackbone(
-            depth, dcn_stages=(1, 2, 3) if cfg.dcn_backbone else (),
-            dcn_interval=3 if depth == 101 else 1)
+        if cfg.backbone.startswith("resnet"):
+            self.backbone = ResNetBackbone(
+                depth, dcn_stages=(1, 2, 3) if cfg.dcn_backbone else (),
+                dcn_interval=3 if depth == 101 else 1)
+            taps = self.backbone.out_channels[1:]
+        else:
+            self.backbone = DarkNet53()
+            taps = tuple(ch for ch, _ in DARKNET_STAGES[2:])
         fc = cfg.fpn_channels
-        self.fpn = YolactFPN(self.backbone.out_channels[1:], fc)
+        self.fpn = YolactFPN(taps, fc)
         self.proto_net = ProtoNet(fc, cfg.mask_dim)
         self.prediction_layers = nn.ModuleList([PredictionModule(cfg)])
         # the semantic logits of the training loss, never run at inference
@@ -214,16 +223,23 @@ class Yolact(nn.Module):
         # BatchNorms in eval mode under train() (see train)
         self.freeze_bn = False
 
+    def taps(self, images: torch.Tensor) -> list:
+        """The backbone's C3, C4, C5 (strides 8, 16, 32)."""
+        feats = self.backbone(images)
+        if isinstance(feats, dict):  # DarkNet-53
+            return [feats[k] for k in ("c3", "c4", "c5")]
+        return feats[1:]
+
     def forward(self, images: torch.Tensor) -> dict:
         """images [B, 3, S, S] normalised -> proto [B, Sp, Sp, k], loc
         [B, N, 4], conf [B, N, C], coeff [B, N, k]."""
-        return self._heads(self.fpn(self.backbone(images)[1:]))
+        return self._heads(self.fpn(self.taps(images)))
 
     def forward_train(self, images: torch.Tensor) -> tuple:
         """The training forward (``tpuseg/models/yolact.py::forward_train``):
         :meth:`forward`'s predictions and the semantic logits of P3
         [B, Hs, Ws, C-1]."""
-        pyramid = self.fpn(self.backbone(images)[1:])
+        pyramid = self.fpn(self.taps(images))
         sem = self.semantic_seg_conv(pyramid[0]).permute(0, 2, 3, 1)
         return self._heads(pyramid), sem
 
@@ -234,10 +250,10 @@ class Yolact(nn.Module):
                 "conf": torch.cat(confs, 1), "coeff": torch.cat(coeffs, 1)}
 
     def train(self, mode: bool = True):
-        """With ``freeze_bn`` set, the BatchNorms stay in eval mode in
-        training (running statistics, none updated) while their affine
-        parameters still train, as the JAX trainer's ``freeze_bn`` (upstream
-        also stops their gradient; see ROADMAP)."""
+        """With ``freeze_bn`` set, the BatchNorms (ResNet's and DarkNet's)
+        stay in eval mode in training (running statistics, none updated)
+        while their affine parameters still train, as the JAX trainer's
+        ``freeze_bn`` (upstream also stops their gradient; see ROADMAP)."""
         super().train(mode)
         if mode and self.freeze_bn:
             for m in self.modules():

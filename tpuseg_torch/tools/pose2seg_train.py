@@ -7,8 +7,9 @@ port's copy of ``tools/pose2seg_train.py``).
 
 The model starts from random weights (seed 0) and takes one image a step,
 as the reference CLI does (it parses --batch_size and feeds one canvas a
-step). The checkpoint is the model's state_dict with upstream's keys;
-``weights/pose2seg_map.py::load_pose2seg_weights`` reads it back.
+step). The checkpoint is the model's state_dict with upstream's keys, or
+for a ``--save`` path ending in ``.npz`` the JAX package's param tree;
+``weights/pose2seg_map.py::load_pose2seg_weights`` reads either back.
 """
 import argparse
 

@@ -22,7 +22,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--max_images", type=int, default=None)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--devices", default=None,
-                    help="only one device is ported (ROADMAP.md §1 item 9)")
+                    help="one device only: multi-GPU is not ported yet "
+                         "(ROADMAP.md §1, Multi-GPU)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("opts", nargs=argparse.REMAINDER,
                     help="dotted config overrides, e.g. MODEL.WEIGHT path")
@@ -30,7 +31,7 @@ def main(argv=None) -> dict:
     if args.devices not in (None, "1"):
         raise NotImplementedError(
             f"--devices {args.devices}: multi-GPU evaluation is not ported "
-            "yet (ROADMAP.md §1 item 9)")
+            "yet (ROADMAP.md §1, Multi-GPU)")
 
     from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
     from tpuseg_torch.engine.config import ConfigNode

@@ -5,12 +5,16 @@ yaml picks Mask R-CNN or Faster R-CNN over FPN or C4, or RetinaNet.
     python -m tpuseg_torch.tools.train_net \
         --config-file configs/e2e_mask_rcnn_R_50_FPN_1x.yaml \
         [SOLVER.IMS_PER_BATCH 8] [DATASETS.IMAGES dir DATASETS.ANNOTATIONS json]
-        [MODEL.WEIGHT init.pth] [--max_steps N] [--device=cpu]
+        [MODEL.WEIGHT init.pth] [--max_steps N] [--compute_dtype bfloat16]
+        [--device=cpu]
 
 Without DATASETS.IMAGES the images and annotations come from
 DATASETS.TRAIN through the DatasetCatalog; without MODEL.WEIGHT the model
 starts from random weights (seed 0). INPUT.MIN_SIZE_TRAIN and
 INPUT.MAX_SIZE_TRAIN set the training canvas (800 and 1333).
+``--compute_dtype bfloat16`` trains in mixed precision: a bf16 forward and
+backward, the f32 master weights in the optimizer. Checkpoints go to
+OUTPUT_DIR as ``model_<iter>.pth`` and ``model_<iter>.npz``.
 """
 import argparse
 
@@ -21,15 +25,12 @@ def main(argv=None) -> list:
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--compute_dtype", default=None,
                     choices=[None, "bfloat16"],
-                    help="bfloat16 training is not ported yet "
-                         "(ROADMAP.md §1 item 4)")
+                    help="bfloat16 = mixed precision (f32 master weights)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("opts", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
-    if args.compute_dtype is not None:
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: bf16 training is not "
-            "ported yet (ROADMAP.md §1 item 4)")
+
+    import torch
 
     from tpuseg_torch.data.coco_dataset import (COCO_LABEL_MAP,
                                                 CocoDetectionDataset)
@@ -80,7 +81,9 @@ def main(argv=None) -> list:
         checkpoint_period=cfg.SOLVER.CHECKPOINT_PERIOD,
         output_dir=cfg.OUTPUT_DIR, max_steps=args.max_steps,
         device=args.device, min_size=int(cfg.INPUT.MIN_SIZE_TRAIN),
-        max_size=int(cfg.INPUT.MAX_SIZE_TRAIN))
+        max_size=int(cfg.INPUT.MAX_SIZE_TRAIN),
+        compute_dtype=(torch.bfloat16 if args.compute_dtype == "bfloat16"
+                       else None))
     if history:
         print(f"{it} iterations; last losses: " + "  ".join(
             f"{k}: {v:.4f}" for k, v in history[-1].items()), flush=True)

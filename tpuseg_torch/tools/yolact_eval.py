@@ -56,13 +56,14 @@ def main(argv=None):
                          "priors by max class score before per-class NMS "
                          "(0 = off/reference-exact)")
     ap.add_argument("--devices", default=None,
-                    help="only one device is ported (ROADMAP.md §1 item 9)")
+                    help="one device only: multi-GPU is not ported yet "
+                         "(ROADMAP.md §1, Multi-GPU)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.devices not in (None, "1"):
         raise NotImplementedError(
             f"--devices {args.devices}: multi-GPU evaluation is not ported "
-            "yet (ROADMAP.md §1 item 9)")
+            "yet (ROADMAP.md §1, Multi-GPU)")
 
     import dataclasses
 

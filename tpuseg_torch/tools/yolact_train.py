@@ -8,7 +8,10 @@ CLI parity; the port's copy of ``tools/yolact_train.py``).
         --resume=weights/yolact_base_10_32100.pth --start_iter=-1
 
 Without --resume the model starts from random weights (seed 0).
-Checkpoints are upstream's ``<config>_<epoch>_<iter>.pth``.
+Checkpoints are upstream's ``<config>_<epoch>_<iter>.pth``, or with
+``--save_format npz`` the JAX package's param tree
+``<config>_<epoch>_<iter>.npz``. ``--compute_dtype bfloat16`` trains in
+mixed precision (f32 master weights).
 """
 import argparse
 
@@ -23,7 +26,8 @@ def main(argv=None) -> list:
     ap.add_argument("--save_interval", type=int, default=10000)
     ap.add_argument("--save_format", default="pth", choices=["pth", "npz"],
                     help="pth = reference SavePath convention (torch-zip, "
-                         "loads in upstream yolact); the port writes no npz")
+                         "loads in upstream yolact); npz = the JAX "
+                         "package's param tree")
     ap.add_argument("--max_iter", type=int, default=800000)
     ap.add_argument("--max_steps", type=int, default=None,
                     help="stop after N steps (smoke runs)")
@@ -31,17 +35,11 @@ def main(argv=None) -> list:
     ap.add_argument("--train_info", default=None)
     ap.add_argument("--compute_dtype", default=None,
                     choices=[None, "bfloat16"],
-                    help="bfloat16 training is not ported yet "
-                         "(ROADMAP.md §1 item 4)")
+                    help="bfloat16 = mixed precision (f32 master weights)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.save_format != "pth":
-        raise NotImplementedError(
-            f"--save_format {args.save_format}: the port writes .pth only")
-    if args.compute_dtype is not None:
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: bf16 training is not "
-            "ported yet (ROADMAP.md §1 item 4)")
+
+    import torch
 
     from tpuseg_torch.configs.presets import (DATASETS, PRESETS,
                                               yolact_loss_config,
@@ -62,7 +60,9 @@ def main(argv=None) -> list:
         save_folder=args.save_folder, cfg_name=preset["name"],
         resume=args.resume, start_iter=args.start_iter,
         max_steps=args.max_steps, loss_cfg=yolact_loss_config(preset),
-        device=args.device)
+        device=args.device, save_format=args.save_format,
+        compute_dtype=(torch.bfloat16 if args.compute_dtype == "bfloat16"
+                       else None))
     if history:
         print(f"{it} iterations; last losses: " + " | ".join(
             f"{k}: {v:.3f}" for k, v in history[-1].items()), flush=True)
