@@ -168,8 +168,30 @@ Phases, one line each; any failure raises and exits non-zero:
      writers, read back equal; K2, K3, K4 and K4c at the bf16 paths' own
      inputs against plain, their bounds and grid_sample; the bf16
      forwards and steps timed beside the f32 ones.
+  18. multi-GPU on one card (tpuseg_torch/parallel): (a) YolactPredictor
+     with two replicas on cuda:0 at B = 8 and MaskRCNNPredictor with two at
+     B = 2 and B = 1 (padded to 2), against devices=None on the same shards
+     (phase 8's and phase 10's tolerances), each replica's launches
+     counted; (b) one rank spawned under NCCL at world size 1: phase 11's
+     YOLACT++ step (B = 8) and phase 9's Mask R-CNN step (B = 2) through
+     DDP against the plain step (losses bit for bit; each gradient that
+     the plain step reproduces bit for bit; the others within phase 9's
+     gate, its atol raised to ten times the plain step's own run-to-run
+     difference, or for YOLACT++ phase 11's train-mode gate), and the DDP
+     overhead in ms per step; (c) two gloo ranks on cuda:0:
+     YOLACT++ at a global B = 12 as 2 x 6, train-mode BatchNorm
+     synchronised, against one process at B = 12 (phase 11's train-mode
+     gate), the running statistics updated; Mask R-CNN at a global B = 2
+     as 2 x 1 against one process running the two halves with the global
+     normalisers (phase 9's gate); the ranks' launches and step times
+     ("two ranks on one card"); (d) yolact_train under
+     torch.distributed.run at world size 1 against phase 13's run,
+     yolact_eval --devices all and test_net --devices 1 against phase 13's,
+     and test_net asking for one GPU more than there are, refused.
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
-line, and as the last line {"ok": true, "device": {...}}.
+line, and as the last line {"ok": true, "device": {...}}. Phase 18 runs
+this file as its ranks' program: ``--rank JOB BACKEND DIR`` (a rank of
+(b) or (c)) and ``--cli-rank OUT ARGV...`` (yolact_train under torchrun).
 """
 from __future__ import annotations
 
@@ -177,6 +199,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -207,7 +230,7 @@ from tpuseg_torch.engine.maskrcnn_engine import (COCO_CATEGORY_IDS,
                                                  MaskRCNNPredictor,
                                                  preprocess_image_bgr)
 from tpuseg_torch.engine.config import get_config
-from tpuseg_torch.engine.trainer import (call_in_dtype, ckpt_path,
+from tpuseg_torch.engine.trainer import (Bound, call_in_dtype, ckpt_path,
                                          make_optimizer,
                                          make_yolact_optimizer,
                                          yolact_lr_schedule)
@@ -231,6 +254,9 @@ from tpuseg_torch.ops import sampling
 from tpuseg_torch.ops.deform_conv import dcn_sample_coords, deform_conv2d
 from tpuseg_torch.ops.preprocess import vit_preprocess as VIT_PRE
 from tpuseg_torch.ops.preprocess import yolact_preprocess
+from tpuseg_torch.parallel import ddp as PDDP
+from tpuseg_torch.parallel.mesh import ThreadGroup
+from tpuseg_torch.parallel.sync_bn import convert_sync_bn
 from tpuseg_torch.weights import from_jax as FJ
 from tpuseg_torch.weights.npz_io import load_params_npz, save_params_npz
 from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
@@ -1454,7 +1480,10 @@ def rel_l2(a: dict, b: dict) -> dict:
 
 def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple,
                        floor: float = 1e-3, cap: float = 1e-2,
-                       what: str = "train-mode", cancelled=()) -> str:
+                       what: str = "train-mode", cancelled=(),
+                       loss_rtol: float = 1e-6,
+                       names: tuple = ("kernels", "plain"),
+                       wide: tuple = ("", 0.0)) -> str:
     """Kernels and plain, two runs each, with train-mode BatchNorm: losses
     equal to rtol 1e-6 (the forward is the same); per gradient, the
     relative L2 error between the kernel and the plain path within ten
@@ -1471,13 +1500,17 @@ def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple,
     leaves more than 1e-6 of the largest: ``cancelled`` names such biases,
     whose gradient is zero in exact arithmetic, and the kernel path's must
     be rounding residue of the same size (its norm at most twice the plain
-    runs')."""
+    runs'). ``loss_rtol``, ``names`` (the two paths' names in the
+    messages) and ``wide`` (a name's substring and the limit of the
+    gradients whose names hold it) serve two paths whose forwards round
+    apart (phase 18)."""
     (l1, g1), (l2, g2), (lp, gp), (_, gp2) = k1, k2, p1, p2
+    kn, pn = names
     for k, w in lp.items():
         for got in (l1, l2):
-            if not abs(got[k] - w) <= 1e-6 * abs(w):
-                raise AssertionError(f"{what} loss {k}: kernels "
-                                     f"{got[k]!r}, plain {w!r}")
+            if not abs(got[k] - w) <= loss_rtol * abs(w):
+                raise AssertionError(f"{what} loss {k}: {kn} "
+                                     f"{got[k]!r}, {pn} {w!r}")
     if sorted(g1) != sorted(gp):
         raise AssertionError("the two paths give gradients to other parameters")
     top = max(float(w.abs().max()) for w in gp.values())
@@ -1497,12 +1530,15 @@ def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple,
     kp = rel_l2(g1, live)
     kk = rel_l2(g1, {n: g2[n] for n in live})
     pp = rel_l2(gp2, live)
-    limit = {n: min(max(floor, 10 * max(kk[n], pp[n])), cap) for n in kp}
+    wide_names = [n for n in kp if wide[0] and wide[0] in n]
+    limit = {n: wide[1] if n in wide_names
+             else min(max(floor, 10 * max(kk[n], pp[n])), cap) for n in kp}
     bad = sorted(((kp[n] / limit[n], n) for n in kp if kp[n] > limit[n]),
                  reverse=True)
     if bad:
-        raise AssertionError(f"{what} gradients past the limit: " + "; ".join(
-            f"{n} kernels vs plain {kp[n]:.3g}, kernels {kk[n]:.3g}, plain "
+        raise AssertionError(f"{what}: {len(bad)} gradients past the limit: "
+                             + "; ".join(
+            f"{n} {kn} vs {pn} {kp[n]:.3g}, {kn} {kk[n]:.3g}, {pn} "
             f"{pp[n]:.3g}" for _, n in bad[:3]))
     worst = max(kp, key=kp.get)
 
@@ -1511,13 +1547,23 @@ def compare_train_mode(k1: tuple, k2: tuple, p1: tuple, p2: tuple,
 
     residue_note = (f"; {len(noise)} cancelled to rounding residue of the "
                     f"same size on both paths" if cancelled else "")
-    return (f"losses equal to rtol 1e-6 in both kernel runs; {len(zero)} "
+    if wide_names:
+        w_top = max(wide_names, key=kp.get)
+        rest = [kp[n] for n in kp if n not in wide_names]
+        residue_note += (f"; the {len(wide_names)} {wide[0]} gradients "
+                         f"(limit {wide[1]:g}): largest {kp[w_top]:.3g} "
+                         f"({w_top}); the rest's largest "
+                         f"{max(rest):.3g}")
+    lerr = max(abs(got[k] - w) / abs(w) for k, w in lp.items()
+               for got in (l1, l2) if w)
+    return (f"losses equal to rtol {loss_rtol:g} in both {kn} runs (largest "
+            f"{lerr:.3g}); {len(zero)} "
             f"gradients zero to rounding on both paths (max|g| <= 1e-6 of "
             f"{top:.4g}){residue_note}; relative L2 error of the other "
-            f"{len(live)}, kernels "
-            f"vs plain: median {med(kp):.3g}, largest {kp[worst]:.3g} "
-            f"({worst}, limit {limit[worst]:.3g}); kernels vs kernels: median "
-            f"{med(kk):.3g}, largest {max(kk.values()):.3g}; plain vs plain: "
+            f"{len(live)}, {kn} "
+            f"vs {pn}: median {med(kp):.3g}, largest {kp[worst]:.3g} "
+            f"({worst}, limit {limit[worst]:.3g}); {kn} vs {kn}: median "
+            f"{med(kk):.3g}, largest {max(kk.values()):.3g}; {pn} vs {pn}: "
             f"median {med(pp):.3g}, largest {max(pp.values()):.3g}")
 
 
@@ -2399,11 +2445,12 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
             wall = time.perf_counter() - t0
         return result, kernels.launch_counts(), wall, starts, out.getvalue()
 
-    clis = {}
-    stats, counts, wall, _, _ = run(test_net.main, [
-        "--config-file", yaml, "--images", img_dir, "--annotations", ann,
-        "--max_images", "8", "--batch_size", "4", "MODEL.WEIGHT",
-        mrcnn["ckpt"]])
+    clis, runs = {}, {}
+    argv = ["--config-file", yaml, "--images", img_dir, "--annotations", ann,
+            "--max_images", "8", "--batch_size", "4", "MODEL.WEIGHT",
+            mrcnn["ckpt"]]
+    stats, counts, wall, _, _ = run(test_net.main, argv)
+    runs["test_net"] = (argv, stats)
     want = {"nms": 12, "roi_align": 4, "roi_align_bwd": 0, "dcn_sample": 0,
             "dcn_sample_bwd": 0}
     if counts != want or not all(np.isfinite(s).all() and s.shape == (12,)
@@ -2435,6 +2482,7 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
                 str(CLI_TRAIN_STEPS)],
              YTL, YOLACT_PER_STEP)):
         history, counts, wall, starts, out = run(main, argv, module)
+        runs[name] = (argv, history)
         want = {k: CLI_TRAIN_STEPS * v for k, v in per_step.items()}
         if counts != want or len(history) != CLI_TRAIN_STEPS or not all(
                 np.isfinite(v) for h in history for v in h.values()):
@@ -2447,10 +2495,11 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
             f"{[round(h['total'], 4) for h in history]}; {wall:.1f} s in "
             f"main(); {out.strip().splitlines()[-1]}")
 
-    maps, counts, wall, _, _ = run(yolact_eval.main, [
-        "--trained_model", yolact["ckpt"], "--valid_images", img_dir,
-        "--valid_info", ann, "--max_images", "8", "--batch_size",
-        str(YOLACT_BATCH)])
+    argv = ["--trained_model", yolact["ckpt"], "--valid_images", img_dir,
+            "--valid_info", ann, "--max_images", "8", "--batch_size",
+            str(YOLACT_BATCH)]
+    maps, counts, wall, _, _ = run(yolact_eval.main, argv)
+    runs["yolact_eval"] = (argv, maps)
     want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0}
     if counts != want or not np.isfinite(maps["mask"]["all"]):
@@ -2469,7 +2518,7 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
             f"after the first, which holds the first step's warm-up: step, "
             f"loss read, next batch built and uploaded; all intervals "
             f"{[round(float(g), 3) for g in gaps]}) [{card}]")
-    return {"counts": clis, "times": times}
+    return {"counts": clis, "times": times, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -4867,6 +4916,772 @@ def phase_bf16(dev, tmp: Path, card: str) -> dict:
     return {"counts": counts, "times": times, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-GPU on one card
+# ---------------------------------------------------------------------------
+
+MULTI_YOLACT_BATCH = 12  # the global batch of the two gloo ranks: 2 x 6
+MULTI_TIMED_STEPS = 5
+RANK_TIMEOUT = 300
+CLI_DDP_STEPS = 3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: str, world: int, backend: str, tmp: Path,
+                inputs: dict) -> list:
+    """``python3 chip_smoke.py --rank job backend dir`` ``world`` times on
+    a free localhost port, every rank on cuda:0 (NCCL takes one rank a
+    card; gloo runs two on one) -> each rank's output. A rank that fails
+    or outlives RANK_TIMEOUT raises with its output; every rank is
+    stopped."""
+    torch.save(inputs, tmp / f"{job}.in.pt")
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", job,
+             backend, str(tmp)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} of {job} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    return [torch.load(tmp / f"{job}.{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def rank_main(job: str, backend: str, tmp: str) -> int:
+    """One rank of phase 18 (``--rank``): join the group the environment
+    names, run ``job`` on cuda:0, save its output."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=world)
+    try:
+        kernels.library()
+        inp = torch.load(Path(tmp) / f"{job}.in.pt", weights_only=False)
+        out = RANK_JOBS[job](inp, dev, rank, world)
+        torch.save(out, Path(tmp) / f"{job}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def yolact_train_model(sd: dict, cfg, dev):
+    model = YM.build_model(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev).train()
+
+
+def maskrcnn_train_model(sd: dict, dev):
+    model = M.build_model(M.MaskRCNNConfig())
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev).train()
+
+
+def bound_grads(bound, model, *args, **kwargs) -> tuple:
+    """Losses and gradients of one forward and backward of ``bound`` (a
+    ``Bound`` or DDP over one); the losses as the global batch's."""
+    model.zero_grad(set_to_none=True)
+    losses = bound(*args, **kwargs)
+    losses["total"].backward()
+    losses = PDDP.mean_over_ranks({k: v.detach() for k, v in losses.items()})
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def timed_steps(fn, n: int = MULTI_TIMED_STEPS) -> float:
+    """ms per call of ``fn`` (a training step) on the host clock, after two
+    warm-ups, synchronised."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def ddp1_job(inp: dict, dev, rank: int, world: int) -> dict:
+    """(b) NCCL at world size 1: phase 11's YOLACT++ step (B = 8) and
+    phase 9's Mask R-CNN step (B = 2), plain (twice) and through DDP, TF32
+    off and deterministic cuDNN; then both timed, plain and DDP in turns."""
+    out = {}
+    ycfg, loss_cfg = inp["yolact_cfg"], inp["yolact_loss_cfg"]
+    model = yolact_train_model(inp["yolact_sd"], ycfg, dev)
+    images = inp["yolact_images"].to(dev)
+    targets = {k: v.to(dev) for k, v in inp["yolact_targets"].items()}
+    priors = torch.from_numpy(YM.make_priors_np(ycfg)).to(dev)
+    draws = inp["yolact_draws"].to(dev)
+    plain = Bound(model, YTL.train_losses)
+    wrapped = PDDP.wrap(Bound(model, YTL.train_losses), dev)
+    args = (images, targets, priors, draws, loss_cfg)
+    with exact_convs():
+        kernels.reset_launch_counts()
+        runs = [bound_grads(plain, model, *args) for _ in range(2)]
+        runs += [bound_grads(wrapped, model, *args) for _ in range(2)]
+        out["yolact_counts"] = kernels.launch_counts()
+    out["yolact"] = ddp_vs_plain(*runs)
+    opt = make_yolact_optimizer(model)
+    times = {}
+    for name in ("plain", "ddp", "ddp", "plain"):
+        times.setdefault(name, []).append(timed_steps(
+            lambda: YTL.train_step(model, opt, 0.0, *args[:4], loss_cfg, None,
+                                   wrapped if name == "ddp" else None)))
+    out["yolact_ms"] = times
+    del model, wrapped, plain, opt, runs
+    torch.cuda.empty_cache()
+
+    model = maskrcnn_train_model(inp["mrcnn_sd"], dev)
+    images, image_hw, targets = (t.to(dev) if torch.is_tensor(t) else
+                                 {k: v.to(dev) for k, v in t.items()}
+                                 for t in inp["mrcnn_batch"])
+    plain = Bound(model, TL.train_losses)
+    wrapped = PDDP.wrap(Bound(model, TL.train_losses), dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    with exact_convs():
+        kernels.reset_launch_counts()
+        runs = [bound_grads(plain, model, images, image_hw, targets, gen())
+                for _ in range(2)]
+        runs.append(bound_grads(wrapped, model, images, image_hw, targets,
+                                gen()))
+        out["mrcnn_counts"] = kernels.launch_counts()
+    out["mrcnn"] = ddp_vs_plain(*runs)
+    opt = make_optimizer(model, 0.0)
+
+    def step(bound):
+        opt.zero_grad(set_to_none=True)
+        bound(images, image_hw, targets, gen())["total"].backward()
+        opt.step()
+
+    times = {}
+    for name in ("plain", "ddp", "ddp", "plain"):
+        times.setdefault(name, []).append(timed_steps(
+            lambda: step(wrapped if name == "ddp" else plain)))
+    out["mrcnn_ms"] = times
+    return out
+
+
+def ddp_vs_plain(p1: tuple, p2: tuple, d: tuple, d2: tuple = None) -> dict:
+    """DDP's step against the plain step: the losses bit for bit (the
+    forward is deterministic); a gradient that two plain runs give bit for
+    bit, bit for bit; the others (downstream of K3's, K4c's and
+    index_add_'s atomics, whose order changes from run to run) within
+    phase 9's gate, rtol 1e-4 / atol 1e-6 max|g|, the atol raised to ten
+    times the two plain runs' largest difference where that is larger
+    (phase 15's), or, given a second DDP run ``d2`` (train-mode
+    BatchNorm, which magnifies the atomics' rounding past any elementwise
+    gate: measured 10.6 times the plain runs' difference on one YOLACT++
+    gradient), within phase 11's train-mode gate."""
+    (l1, g1), (l2, g2), (ld, gd) = p1, p2, d
+    bad, exact, rest, worst = [], 0, 0, 0.0
+    gate = None
+    if d2 is not None:
+        try:
+            gate = compare_train_mode(d, d2, p1, p2, what="DDP against plain",
+                                      names=("DDP", "plain"))
+        except AssertionError as e:
+            bad.append(str(e))
+    if not ld == l1 == l2:
+        bad.append(f"losses: DDP {ld}, plain {l1}, {l2}")
+    if sorted(gd) != sorted(g1):
+        bad.append("other parameters have gradients")
+    reproducible = [n for n, w in g1.items() if torch.equal(g2[n], w)]
+    for n, w in g1.items():
+        if n not in gd:
+            continue
+        if torch.equal(gd[n], w):
+            exact += 1
+            continue
+        if n in reproducible:
+            bad.append(f"{n}: the plain step gives it bit for bit, DDP not")
+            continue
+        rest += 1
+        if gate is not None:
+            continue
+        scale = float(w.abs().max())
+        atol = max(1e-6 * scale, 10 * float((g2[n] - w).abs().max()))
+        excess = float(((gd[n] - w).abs() - 1e-4 * w.abs()).max())
+        worst = max(worst, excess / atol)
+        if excess > atol:
+            bad.append(f"{n}: {excess / scale:.3g} of max|g| past rtol "
+                       f"1e-4, atol {atol / scale:.3g}")
+    return {"bad": bad, "exact": exact, "rest": rest, "worst": worst,
+            "reproducible": len(reproducible), "n": len(g1),
+            "losses": ld, "gate": gate}
+
+
+def gloo2_job(inp: dict, dev, rank: int, world: int) -> dict:
+    """(c) two gloo ranks on cuda:0: YOLACT++ at a global B = 12 (6 a
+    rank, train-mode BatchNorm synchronised; two runs) and Mask R-CNN at a
+    global B = 2 (1 a rank), each rank its rows of the global batch and of
+    the draws for the global batch, TF32 off and deterministic cuDNN;
+    rank 0 returns the gradients, rank 1 their per-tensor sums; both
+    their launches and step times."""
+    out = {}
+    ycfg, loss_cfg = inp["yolact_cfg"], inp["yolact_loss_cfg"]
+    b = MULTI_YOLACT_BATCH // world
+    rows = slice(rank * b, (rank + 1) * b)
+    model = yolact_train_model(inp["yolact_sd"], ycfg, dev)
+    convert_sync_bn(model)
+    wrapped = PDDP.wrap(Bound(model, YTL.train_losses), dev)
+    priors = torch.from_numpy(YM.make_priors_np(ycfg)).to(dev)
+    args = (inp["yolact_images"][rows].to(dev),
+            {k: v[rows].to(dev) for k, v in inp["yolact_targets"].items()},
+            priors, inp["yolact_draws"][rows].to(dev), loss_cfg)
+    with exact_convs():
+        kernels.reset_launch_counts()
+        runs = [bound_grads(wrapped, model, *args) for _ in range(2)]
+        out["yolact_counts"] = kernels.launch_counts()
+    out["yolact_stats"] = {k: v.cpu() for k, v in model.state_dict().items()
+                           if k.endswith(("running_mean", "running_var"))}
+    out["yolact_runs"] = [(losses, {n: g.cpu() for n, g in grads.items()}
+                           if rank == 0 else None) for losses, grads in runs]
+    out["yolact_sums"] = [grad_sums(grads) for _, grads in runs]
+    del runs
+    opt = make_yolact_optimizer(model)
+    out["yolact_ms"] = timed_steps(lambda: YTL.train_step(
+        model, opt, 0.0, *args[:4], loss_cfg, None, wrapped))
+    del model, wrapped, opt
+    torch.cuda.empty_cache()
+
+    model = maskrcnn_train_model(inp["mrcnn_sd"], dev)
+    wrapped = PDDP.wrap(Bound(model, TL.train_losses), dev)
+    images, image_hw, targets = inp["mrcnn_batch"]
+    margs = (images[rank:rank + 1].to(dev), image_hw[rank:rank + 1].to(dev),
+             {k: v[rank:rank + 1].to(dev) for k, v in targets.items()})
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    with exact_convs():
+        kernels.reset_launch_counts()
+        losses, grads = bound_grads(wrapped, model, *margs, gen())
+        out["mrcnn_counts"] = kernels.launch_counts()
+    out["mrcnn"] = (losses, {n: g.cpu() for n, g in grads.items()}
+                    if rank == 0 else None)
+    out["mrcnn_sums"] = grad_sums(grads)
+    opt = make_optimizer(model, 0.0)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        wrapped(*margs, gen())["total"].backward()
+        opt.step()
+
+    out["mrcnn_ms"] = timed_steps(step)
+    return out
+
+
+def grad_sums(grads: dict) -> dict:
+    """Each gradient's sum in f64, on its device: two ranks' DDP
+    gradients are the same tensors bit for bit."""
+    return {n: float(g.double().sum()) for n, g in grads.items()}
+
+
+RANK_JOBS = {"ddp1": ddp1_job, "gloo2": gloo2_job}
+
+
+def cli_rank_main(out_path: str, argv: list) -> int:
+    """``yolact_train``'s main() under torchrun (``--cli-rank``), its
+    per-step losses saved to ``out_path`` by rank 0."""
+    from tpuseg_torch.tools import yolact_train
+
+    history = yolact_train.main(argv)
+    if int(os.environ.get("RANK", "0")) == 0:
+        torch.save(history, out_path)
+    return 0
+
+
+def same_results(got: list, want: list, what: str) -> str:
+    """Final detections of the predictors, image for image: counts and
+    classes equal, boxes atol 1e-3, scores rtol 1e-5, the pasted masks
+    equal (phase 8's tolerances on the padded outputs)."""
+    err = {"boxes": 0.0, "scores": 0.0}
+    for i, (a, b) in enumerate(zip(got, want)):
+        if len(a["scores"]) != len(b["scores"]) or not np.array_equal(
+                a["classes"], b["classes"]):
+            raise AssertionError(f"{what} image {i}: detections differ")
+        np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-3, rtol=0)
+        np.testing.assert_allclose(a["scores"], b["scores"], atol=0,
+                                   rtol=1e-5)
+        if not np.array_equal(a["masks"], b["masks"]):
+            raise AssertionError(f"{what} image {i}: masks differ")
+        for k in err:
+            if len(a[k]):
+                err[k] = max(err[k], float(np.abs(a[k] - b[k]).max()))
+    return (f"{[len(r['scores']) for r in got]} detections equal, max err "
+            f"boxes {err['boxes']:.3g} scores {err['scores']:.3g}")
+
+
+def multi_replicas(dev) -> dict:
+    """(a) In-process replicas on cuda:0 twice: YolactPredictor at B = 8
+    and MaskRCNNPredictor at B = 2 and B = 1 (padded to 2), each against
+    ``devices=None`` on the same shards (cuDNN then sees the same batch
+    sizes), TF32 off and deterministic cuDNN; the replicas' launches."""
+    cfg = yolact_model_config("yolact_plus_resnet50")
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(model, SEED),
+                          strict=True)
+    images = yolact_images(SEED, 8, cfg.img_size)
+    model = model.to(dev)
+    calibrate_yolact_gate(model, yolact_preprocess(
+        torch.from_numpy(images).to(dev), cfg.img_size), want=(10, 500))
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    one = YolactPredictor(cfg, state_dict=sd, batch_size=8, device=dev)
+    two = YolactPredictor(cfg, state_dict=sd, batch_size=8, device=dev,
+                          devices=[dev, dev])
+    counts = {}
+    with exact_convs():
+        kernels.reset_launch_counts()
+        got = two.run_batch(images)
+        torch.cuda.synchronize()
+        counts["multi_replicas_yolact"] = kernels.launch_counts()
+        halves = [one.run_batch(images[:4]), one.run_batch(images[4:])]
+        want = {k: torch.cat([h[k] for h in halves]) for k in halves[0]}
+    if counts["multi_replicas_yolact"] != per(
+            {"dcn_sample": sum(DCN_PER_FORWARD)}, 2):
+        raise AssertionError(f"two YOLACT++ replicas launched "
+                             f"{counts['multi_replicas_yolact']}")
+    check_yolact(two, got, 8)
+    err = compare_yolact(got, want)
+    log(f"[18 multi-GPU] (a) YolactPredictor(devices=[cuda:0, cuda:0]) at "
+        f"B = 8 (two replicas, one thread each) against devices=None on its "
+        f"4-image shards: detections {got['valid'].sum(1).tolist()} equal, "
+        f"max err " + ", ".join(f"{n} {e:.3g}" for n, e in err.items())
+        + f"; launches {compact(counts['multi_replicas_yolact'])} "
+        f"({sum(DCN_PER_FORWARD)} K4 a replica)")
+    del one, two, got, want, halves
+    torch.cuda.empty_cache()
+
+    mcfg = M.MaskRCNNConfig()
+    msd = synthetic_state_dict(M.build_model(mcfg), SEED)
+    landscape, _ = synthetic_images(SEED)
+
+    def predictor(devices=None):
+        model = M.build_model(mcfg)
+        model.load_state_dict(msd, strict=True)
+        return MaskRCNNPredictor(model=model, device=dev, devices=devices)
+
+    one, two = predictor(), predictor([dev, dev])
+    lines = []
+    for b in (2, 1):
+        imgs, path = landscape[:b], f"multi_replicas_maskrcnn_b{b}"
+        with exact_convs():
+            kernels.reset_launch_counts()
+            got = two.run_on_bgr_images(imgs)
+            torch.cuda.synchronize()
+            counts[path] = kernels.launch_counts()
+            want = [one.run_on_bgr_image(img) for img in imgs]
+        if counts[path] != per({"nms": 6, "roi_align": 2}, 2):
+            raise AssertionError(f"two Mask R-CNN replicas at B = {b} "
+                                 f"launched {counts[path]}")
+        for r, img in zip(got, imgs):
+            check_result(r, *img.shape[:2])
+        lines.append(f"B = {b}{' (padded to 2)' if b == 1 else ''}: "
+                     f"{same_results(got, want, f'Mask R-CNN B = {b}')}, "
+                     f"launches {compact(counts[path])}")
+    log("[18 multi-GPU] (a) MaskRCNNPredictor(devices=[cuda:0, cuda:0]) "
+        "against devices=None image by image: " + "; ".join(lines)
+        + " (6 K1 + 2 K2 a replica)")
+    return counts
+
+
+def multi_inputs(dev) -> tuple:
+    """Phase 11's and phase 9's weights and batches for the ranks, on the
+    CPU: YOLACT++ at B = 8 (the world-size-1 step) and at B = 12 (the two
+    ranks'), with their draws; Mask R-CNN at B = 2."""
+    name = "yolact_plus_resnet50"
+    cfg, loss_cfg = yolact_model_config(name), yolact_loss_config(name)
+    ysd = synthetic_yolact_state_dict(YM.build_model(cfg), SEED + 11,
+                                      offset_scale=TRAIN_OFFSET_SCALE)
+    n = YM.make_priors_np(cfg).shape[0]
+    batches = {}
+    for b in (YOLACT_BATCH, MULTI_YOLACT_BATCH):
+        data = SyntheticYolactDataset(SEED + 11, n_images=b)
+        images, targets = YTL.batch_to_device(*next(YTL.batch_iterator(
+            data, cfg, np.random.default_rng(SEED + 12), b)), "cpu")
+        draws = torch.rand((b, n), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 13)).cpu()
+        batches[b] = {"yolact_images": images, "yolact_targets": targets,
+                      "yolact_draws": draws}
+    msd = synthetic_state_dict(M.build_model(M.MaskRCNNConfig()), SEED + 7)
+    msd["backbone.body.stem.bn1.running_var"] *= PIXEL_VAR
+    data = SyntheticDataset(SEED + 7)
+    rng = np.random.default_rng(SEED + 8)
+    mbatch = TL.batch_to_device([TL.build_train_example(data, i, rng=rng)
+                                 for i in data.image_ids[:2]], "cpu")
+    common = {"yolact_cfg": cfg, "yolact_loss_cfg": loss_cfg,
+              "yolact_sd": ysd, "mrcnn_sd": msd, "mrcnn_batch": mbatch}
+    return ({**common, **batches[YOLACT_BATCH]},
+            {**common, **batches[MULTI_YOLACT_BATCH]})
+
+
+def multi_ddp1(dev, tmp: Path, inputs: dict, card: str) -> dict:
+    """(b) DDP over NCCL at world size 1 in a rank of its own."""
+    out = spawn_ranks("ddp1", 1, "nccl", tmp, inputs)[0]
+    counts = {"multi_ddp1_yolact": out["yolact_counts"],
+              "multi_ddp1_maskrcnn": out["mrcnn_counts"]}
+    if counts["multi_ddp1_yolact"] != per(YOLACT_PER_STEP, 4) or counts[
+            "multi_ddp1_maskrcnn"] != per(PER_STEP, 3):
+        raise AssertionError(f"world-size-1 steps launched {counts}")
+    times, lines = {}, []
+    for key, what in (("yolact", f"YOLACT++ B = {YOLACT_BATCH}"),
+                      ("mrcnn", "Mask R-CNN B = 2")):
+        r = out[key]
+        if r["bad"]:
+            raise AssertionError(f"DDP at world size 1, {what}: "
+                                 f"{len(r['bad'])} failures: {r['bad'][:3]}")
+        ms = out[f"{key}_ms"]
+        plain, ddp_ms = (float(np.mean(ms[k])) for k in ("plain", "ddp"))
+        times[f"ddp world size 1 {what} plain step"] = plain
+        times[f"ddp world size 1 {what} DDP step"] = ddp_ms
+        rest = (f"phase 11's train-mode gate, two runs each: {r['gate']}"
+                 if r["gate"] else
+                 f"within rtol 1e-4 and the larger of 1e-6 max|g| and ten "
+                 f"times the plain runs' difference (the largest excess "
+                 f"{r['worst']:.3g} of that atol)")
+        lines.append(
+            f"{what}: losses equal bit for bit "
+            f"({', '.join(f'{k} {v:.6g}' for k, v in r['losses'].items())}); "
+            f"{r['exact']} of {r['n']} gradients equal bit for bit (two "
+            f"plain runs agree bit for bit on {r['reproducible']}: the "
+            f"others lie downstream of the backward's atomics), the other "
+            f"{r['rest']}: {rest}; "
+            f"ms per step (TF32 on, SGD, host clock, {MULTI_TIMED_STEPS} "
+            f"after 2 warm-ups; plain, DDP, DDP, plain): plain "
+            f"{ms['plain']}, DDP {ms['ddp']}, DDP overhead "
+            f"{ddp_ms - plain:+.2f} ms per step")
+    log(f"[18 multi-GPU] (b) DDP over NCCL at world size 1 (one rank "
+        f"spawned on a free port; TF32 off, deterministic cuDNN for the "
+        f"comparison): " + "; ".join(lines) + f" [{card}]")
+    return {"counts": counts, "times": times}
+
+
+def multi_gloo2(dev, tmp: Path, inputs: dict, card: str) -> dict:
+    """(c) two gloo ranks on cuda:0 against one process."""
+    outs = spawn_ranks("gloo2", 2, "gloo", tmp, inputs)
+    counts = {"multi_ranks_yolact": per({}), "multi_ranks_maskrcnn": per({})}
+    for o in outs:
+        for path, key in (("multi_ranks_yolact", "yolact_counts"),
+                          ("multi_ranks_maskrcnn", "mrcnn_counts")):
+            counts[path] = {k: counts[path][k] + o[key][k] for k in o[key]}
+    if counts["multi_ranks_yolact"] != per(YOLACT_PER_STEP, 4) or counts[
+            "multi_ranks_maskrcnn"] != per(PER_STEP, 2):
+        raise AssertionError(f"the two ranks launched {counts}")
+    r0, r1 = outs
+    if r0["yolact_sums"] != r1["yolact_sums"] or (
+            r0["mrcnn_sums"] != r1["mrcnn_sums"]):
+        raise AssertionError("the two ranks hold other gradients")
+
+    # the one process: YOLACT++ at B = 12 (twice), TF32 off
+    cfg, loss_cfg = inputs["yolact_cfg"], inputs["yolact_loss_cfg"]
+    model = yolact_train_model(inputs["yolact_sd"], cfg, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    args = (inputs["yolact_images"].to(dev),
+            {k: v.to(dev) for k, v in inputs["yolact_targets"].items()},
+            torch.from_numpy(YM.make_priors_np(cfg)).to(dev),
+            inputs["yolact_draws"].to(dev), loss_cfg)
+    with exact_convs():
+        ref = [yolact_step_grads(model, *args) for _ in range(2)]
+        torch.cuda.synchronize()
+    # the ranks' BatchNorm statistics (a parallel combination of per-rank
+    # means and sums of squares) round apart from cuDNN's over the whole
+    # batch, so the forwards are not bit-equal: measured on the card, B,
+    # C, M and S within 1e-6, FastMaskIoUNet's I (masks thresholded at 0.5
+    # into an IoU) 1.4e-5; the losses are held at 1e-4. Phase 11's
+    # gradient gate (ten times either path's spread, 1e-3 to 1e-2) assumes
+    # one forward on both paths: here each path reproduces itself to 2e-6
+    # relative L2 but 196 of 246 gradients lie over 1e-3 from the other
+    # path (measured on the card): train-mode BatchNorm's backward
+    # magnifies the statistics' rounding, as it does f32 against f64 on
+    # the CPU (median 5.9e-3, largest 3.1e-2:
+    # tests/test_torch_yolact_train_bn.py, which holds 5e-2). So every
+    # gradient is held at 5e-2 relative L2, the DCN offset convs' at 1e-1:
+    # they sum the sampler's coordinate gradient, which jumps where a
+    # sample crosses into the next cell, and the rounding moves a few
+    # samples across (measured: layer 3's 0.038-0.047).
+    gate = compare_train_mode(*[(l, {n: g.to(dev) for n, g in gr.items()})
+                                for l, gr in r0["yolact_runs"]], *ref,
+                              floor=5e-2, cap=5e-2,
+                              what="two ranks against one process",
+                              loss_rtol=1e-4,
+                              names=("ranks", "one process"),
+                              wide=("conv_offset_mask", 1e-1))
+    stats = {k: v for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    stale = [k for k in stats if torch.equal(stats[k], before[k])]
+    for o in outs:
+        stale += [k for k in stats if torch.equal(o["yolact_stats"][k],
+                                                  before[k].cpu())]
+        err = max(float(((o["yolact_stats"][k].to(dev) - v).abs()
+                         / v.abs().clamp(min=1e-3)).max())
+                  for k, v in stats.items())
+        if stale or err > 1e-3:
+            raise AssertionError(f"running statistics: {stale[:3]} not "
+                                 f"updated, or {err:.3g} from one process's")
+    del model, ref, before
+    torch.cuda.empty_cache()
+
+    # Mask R-CNN: one process runs the two 1-image halves, one thread each
+    # with the global normalisers (a ThreadGroup), TF32 off
+    model = maskrcnn_train_model(inputs["mrcnn_sd"], dev)
+    images, image_hw, targets = inputs["mrcnn_batch"]
+
+    def half(r):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        losses = TL.train_losses(
+            model, images[r:r + 1].to(dev), image_hw[r:r + 1].to(dev),
+            {k: v[r:r + 1].to(dev) for k, v in targets.items()}, gen)
+        losses["total"].backward()
+        return PDDP.mean_over_ranks({k: v.detach() for k, v in losses.items()})
+
+    model.zero_grad(set_to_none=True)
+    with exact_convs():
+        kernels.reset_launch_counts()
+        losses = ThreadGroup(2).run(half)[0]
+        torch.cuda.synchronize()
+        ref_counts = kernels.launch_counts()
+    want = ({k: float(v) for k, v in losses.items()},
+            {n: p.grad.detach() / 2 for n, p in model.named_parameters()
+             if p.grad is not None})
+    if ref_counts != per(PER_STEP, 2):
+        raise AssertionError(f"the one-process halves launched {ref_counts}")
+    mgate = compare_steps((r0["mrcnn"][0], {n: g.to(dev) for n, g in
+                                            r0["mrcnn"][1].items()}), want)
+    log(f"[18 multi-GPU] (c) two gloo ranks on cuda:0 (each rank its rows "
+        f"of the global batch and of its draws; TF32 off, deterministic "
+        f"cuDNN), gradients equal on both ranks: YOLACT++ at a global B = "
+        f"{MULTI_YOLACT_BATCH} as 2 x {MULTI_YOLACT_BATCH // 2} with "
+        f"train-mode BatchNorm synchronised, two runs, against one process "
+        f"at B = {MULTI_YOLACT_BATCH}, two runs: {gate}; running statistics "
+        f"updated, within 1e-3 of one process's; launches of both ranks "
+        f"{compact(counts['multi_ranks_yolact'])}")
+    log(f"[18 multi-GPU] (c) Mask R-CNN at a global B = 2 as 2 x 1 against "
+        f"one process running the two 1-image halves with the global "
+        f"normalisers (a ThreadGroup): {mgate}; launches of both ranks "
+        f"{compact(counts['multi_ranks_maskrcnn'])}")
+    times = {}
+    for what, key in ((f"YOLACT++ B = {MULTI_YOLACT_BATCH // 2} a rank",
+                       "yolact_ms"), ("Mask R-CNN B = 1 a rank", "mrcnn_ms")):
+        ms = [o[key] for o in outs]
+        times[f"two ranks on one card {what}"] = float(np.mean(ms))
+        log(f"[18 timing] two ranks on one card (not a multi-GPU speed), "
+            f"{what}: {ms[0]:.2f} and {ms[1]:.2f} ms per DDP step (TF32 "
+            f"on, SGD, host clock, {MULTI_TIMED_STEPS} after 2 warm-ups, "
+            f"the two ranks at once) [{card}]")
+    return {"counts": counts, "times": times}
+
+
+def multi_clis(dev, tmp: Path, coco: dict, card: str,
+               refused: subprocess.Popen) -> dict:
+    """(d) yolact_train under torch.distributed.run against phase 13's
+    run; yolact_eval --devices all and test_net --devices 1 against phase
+    13's; ``refused``: test_net asking for more GPUs than there are."""
+    from tpuseg_torch.tools import test_net, yolact_eval, yolact_train
+
+    runs = coco["runs"]
+    argv, history = runs["yolact_train"]
+    argv = [a for a in argv]
+    argv[argv.index("--max_steps") + 1] = str(CLI_DDP_STEPS)
+    argv[argv.index("--save_folder") + 1] = str(tmp / "yolact_train_ddp")
+    out_path = tmp / "yolact_train_ddp.pt"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", str(Path(__file__).resolve()),
+         "--cli-rank", str(out_path), "--dist_backend", "nccl", *argv],
+        capture_output=True, text=True, timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"yolact_train under torch.distributed.run "
+                             f"exited {proc.returncode}:\n"
+                             f"{(proc.stdout + proc.stderr)[-6000:]}")
+    got = torch.load(out_path, weights_only=False)
+    if len(got) != CLI_DDP_STEPS:
+        raise AssertionError(f"torchrun's yolact_train ran {len(got)} steps")
+    # the same CLI again without torchrun: how far two runs of one path
+    # lie apart after the first update
+    plain_argv = [*argv]
+    plain_argv[plain_argv.index("--save_folder") + 1] = str(
+        tmp / "yolact_train_plain")
+    with quiet():
+        plain = yolact_train.main(plain_argv)
+        torch.cuda.synchronize()
+
+    def rel(run):
+        return [max(abs(g[k] - w[k]) / abs(w[k]) for k in w)
+                for g, w in zip(run, history)]
+
+    rel_ddp, rel_plain = rel(got), rel(plain)
+    # the first step is the same batch, draws and forward: bit for bit.
+    # Later steps carry the first update, whose gradients the backward's
+    # atomics (K4c, cuDNN's wgrad) round apart from run to run, and
+    # train-mode BatchNorm and yolact's lr on synthetic weights magnify
+    # that (measured on the card at step 3: FastMaskIoUNet's I 6.6e-2, M
+    # 2.9e-2 from phase 13's run; the plain run's own difference beside
+    # it): held at 2e-1
+    if got[0] != history[0] or plain[0] != history[0] or max(
+            rel_ddp + rel_plain) > 2e-1 or not all(
+            np.isfinite(v) for h in got for v in h.values()):
+        raise AssertionError(f"torchrun's losses {got}, the plain CLI's "
+                             f"{plain}, against phase 13's "
+                             f"{history[:CLI_DDP_STEPS]}")
+    log(f"[18 multi-GPU] (d) yolact_train under torch.distributed.run "
+        f"--standalone --nproc_per_node 1 --dist_backend nccl (DDP at world "
+        f"size 1), {CLI_DDP_STEPS} steps over phase 13's dataset in "
+        f"{wall:.1f} s: the first step's losses equal phase 13's bit for "
+        f"bit (total {got[0]['total']!r}); the largest relative difference "
+        f"of a loss from phase 13's, per step: torchrun "
+        f"{[float(f'{r:.3g}') for r in rel_ddp]}, the CLI again without "
+        f"torchrun {[float(f'{r:.3g}') for r in rel_plain]} (the backward's "
+        f"atomics, run to run)")
+
+    lines = []
+    for name, main, flag in (("yolact_eval", yolact_eval.main, "all"),
+                             ("test_net", test_net.main, "1")):
+        argv, want = runs[name]
+        kernels.reset_launch_counts()
+        with quiet():
+            got = main([*argv, "--devices", flag])
+            torch.cuda.synchronize()
+        if name == "yolact_eval":
+            diff = max(abs(got[t][k] - want[t][k]) for t in want
+                       for k in want[t])
+        else:
+            diff = max(float(np.abs(got[t] - want[t]).max()) for t in want)
+        if diff > 1e-9:
+            raise AssertionError(f"{name} --devices {flag}: {got} against "
+                                 f"phase 13's {want}")
+        lines.append(f"{name} --devices {flag}: phase 13's "
+                     f"{'maps' if name == 'yolact_eval' else 'stats'} "
+                     f"(largest difference {diff:.3g}), launches "
+                     f"{compact(kernels.launch_counts())}")
+    out = refused.communicate(timeout=RANK_TIMEOUT)[0]
+    want_msg = "refusing to silently under-provision"
+    if refused.returncode == 0 or want_msg not in out:
+        raise AssertionError(f"test_net asking for more GPUs than visible "
+                             f"exited {refused.returncode}:\n{out[-3000:]}")
+    msg = next(ln for ln in out.splitlines() if want_msg in ln)
+    log("[18 multi-GPU] (d) " + "; ".join(lines)
+        + f"; test_net --devices {torch.cuda.device_count() + 1} on "
+        f"{torch.cuda.device_count()} visible GPU(s) exits "
+        f"{refused.returncode}: {msg.strip()}")
+    return {"times": {"torchrun yolact_train s": wall}}
+
+
+def rank_dcn_shapes(dev, card: str) -> dict:
+    """K4 and K4c at a gloo rank's YOLACT++ batch (B = 6) on the 69x69x128
+    s1 geometry (layer2 blocks 1-3), f32: each against its plain version,
+    its bound and grid_sample (or its backward); the launch alone."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+
+    b = MULTI_YOLACT_BATCH // 2
+    feats, sy, sx, m = (t[:b] for t in dcn_case(dev, 69, 69, 128, 1))
+    grad = dcn_grad(dev, feats, sy)
+    shapes = {}
+    for kind, fn, entry, lib_fn, bound_fn in (
+            ("dcn_sample", lambda: sampling.sample_points(feats, sy, sx, m),
+             "sample_points", lambda: grid_sample_points(feats, sy, sx, m),
+             dcn_bound),
+            ("dcn_sample_bwd", lambda: run_dcn_bwd(grad, feats, sy, sx, m),
+             "sample_points_backward",
+             grid_sample_backward(feats, sy, sx, m, grad), dcn_bwd_bound)):
+        with (torch.inference_mode() if kind == "dcn_sample"
+              else contextlib.nullcontext()):
+            k, p = time_pair(fn, iters=10)
+            args = kernel_args(dcn_kernel, entry, fn)
+            alone = cuda_time_ms(lambda: getattr(dcn_kernel, entry)(*args),
+                                 10)
+            lib = cuda_time_ms(lib_fn, iters=10)
+        name = f"{kind} float32 B={b} 69x69x128 s1 (a phase-18 rank)"
+        t = (k, p) + bound_fn(feats, sy, sx) + (lib, alone)
+        shapes[kind] = {name: t}
+        library = ("grid_sample" if kind == "dcn_sample"
+                   else "grid_sample backward")
+        log(f"[18 timing] {name}: kernel {k:.4f} ms (the launch alone "
+            f"{alone:.4f} ms), plain {p:.4f} ms, bound {t[2]:.4g} ms by "
+            f"{t[3]}, {library} {lib:.4f} ms [{card}]")
+    return shapes
+
+
+def phase_multi_gpu(dev, tmp: Path, coco: dict, card: str) -> dict:
+    """Phase 18: the multi-GPU layer on one card."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    refused = subprocess.Popen(
+        [sys.executable, "-m", "tpuseg_torch.tools.test_net", "--devices",
+         str(torch.cuda.device_count() + 1)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        counts = multi_replicas(dev)
+        torch.cuda.empty_cache()
+        inputs1, inputs2 = multi_inputs(dev)
+        t_host = {}
+        data = SyntheticYolactDataset(SEED + 11, n_images=MULTI_YOLACT_BATCH)
+        cfg = inputs1["yolact_cfg"]
+        for b in (MULTI_YOLACT_BATCH // 2, MULTI_YOLACT_BATCH):
+            batches = YTL.batch_iterator(data, cfg, np.random.default_rng(0),
+                                         b)
+            s = time.perf_counter()
+            for _ in range(2):
+                next(batches)
+            t_host[b] = (time.perf_counter() - s) * 1e3 / 2
+        shapes = rank_dcn_shapes(dev, card)
+        parts = {"(a) and the inputs": time.perf_counter() - t0}
+        b1 = multi_ddp1(dev, tmp, inputs1, card)
+        parts["(b)"] = time.perf_counter() - t0 - sum(parts.values())
+        b2 = multi_gloo2(dev, tmp, inputs2, card)
+        parts["(c)"] = time.perf_counter() - t0 - sum(parts.values())
+        d = multi_clis(dev, tmp, coco, card, refused)
+        parts["(d)"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        if refused.poll() is None:
+            refused.kill()
+            refused.wait()
+    counts.update(b1["counts"])
+    counts.update(b2["counts"])
+    times = {**b1["times"], **b2["times"], **d["times"],
+             **{f"host batch B={b}": t for b, t in t_host.items()}}
+    half = MULTI_YOLACT_BATCH // 2
+    log(f"[18 timing] the host's YOLACT++ batch (SSD augmentation, "
+        f"targets), which every rank builds for the global batch before "
+        f"keeping its rows: B = {half} {t_host[half]:.1f} ms, B = "
+        f"{MULTI_YOLACT_BATCH} {t_host[MULTI_YOLACT_BATCH]:.1f} ms (mean of "
+        f"2, host clock) [{card}]")
+    log(f"[18 total] phase 18 in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return {"counts": counts, "times": times, "shapes": shapes}
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -4949,8 +5764,10 @@ def main() -> int:
     times.update(time_yolact_train(dev, yolact_train, card))
     del pred, train, yolact, yolact_train
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as family_tmp, \
-            tempfile.TemporaryDirectory() as tmp:
+    # phase 13's dataset and checkpoints stay for phase 18's CLIs
+    coco_tmp = tempfile.TemporaryDirectory()
+    with tempfile.TemporaryDirectory() as family_tmp:
+        tmp = coco_tmp.name
         family = phase_family(dev, Path(family_tmp), card)
         times.update(family["times"])
         data = phase_coco_data(dev, Path(tmp), card)
@@ -4977,6 +5794,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         bf16 = phase_bf16(dev, Path(tmp), card)
     times.update(bf16["times"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = phase_multi_gpu(dev, Path(tmp), clis, card)
+    coco_tmp.cleanup()
+    times.update(multi["times"])
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
@@ -4991,7 +5813,12 @@ def main() -> int:
         classifier and forwards, three training steps and its CLIs' runs;
         phase 17's: one bf16 B = 2 forward of each detectron model, three
         bf16 training steps of Mask R-CNN and of YOLACT++, the DarkNet
-        YOLACT forward and its bf16 training CLI."""
+        YOLACT forward and its bf16 training CLI; phase 18's: two YOLACT++
+        replicas at B = 8 and two Mask R-CNN replicas at B = 2 and 1, the
+        world-size-1 rank's steps (YOLACT++ two plain and two DDP, Mask
+        R-CNN two plain and one DDP), and
+        the two gloo ranks' YOLACT++ steps (two each) and Mask R-CNN steps
+        (one each) together."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
@@ -5003,7 +5830,8 @@ def main() -> int:
                 **{path: n[name] for path, n in pose2seg["counts"].items()},
                 **{path: n[name] for path, n in yolo["counts"].items()},
                 **{path: n[name] for path, n in vit["counts"].items()},
-                **{path: n[name] for path, n in bf16["counts"].items()}}
+                **{path: n[name] for path, n in bf16["counts"].items()},
+                **{path: n[name] for path, n in multi["counts"].items()}}
 
     def pose2seg_shapes(prefix: str) -> dict:
         return {label: shape_entry(t)
@@ -5015,7 +5843,7 @@ def main() -> int:
                 for label, t in bf16["shapes"][name].items()}
 
     log(f"[total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 17 (the kernels' build included)")
+        "main to the end of phase 18 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [
@@ -5051,7 +5879,9 @@ def main() -> int:
                         times[f"dcn_sample float32 B={DCN_BATCH} "
                               "69x69x128 s1"]),
          "shapes": {**pose2seg_shapes("dcn_sample"),
-                    **bf16_shapes("dcn_sample")}},
+                    **bf16_shapes("dcn_sample"),
+                    **{k: shape_entry(t) for k, t in
+                       multi["shapes"]["dcn_sample"].items()}}},
         {**kernel_entry("dcn_sample_bwd",
                         "tpuseg_torch/csrc/dcn_sample_bwd.cu",
                         "tpuseg/ops/pallas/dcn_pl.py:311",
@@ -5059,7 +5889,9 @@ def main() -> int:
                         dcn_bwd_res["max_abs_err"], times[k4c]),
          "kernel_alone_split_ms": times[k4c + " split"],
          "shapes": {**pose2seg_shapes("dcn_sample_bwd"),
-                    **bf16_shapes("dcn_sample_bwd")}},
+                    **bf16_shapes("dcn_sample_bwd"),
+                    **{k: shape_entry(t) for k, t in
+                       multi["shapes"]["dcn_sample_bwd"].items()}}},
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {
@@ -5069,4 +5901,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # a rank of phase 18
+        sys.exit(rank_main(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--cli-rank"]:  # yolact_train under torchrun
+        sys.exit(cli_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

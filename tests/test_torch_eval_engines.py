@@ -282,8 +282,20 @@ def test_yolact_eval_cli_on_cpu(coco, small_yolact, tmp_path, monkeypatch,
     assert yolact_eval.infer_config_name(
         "w/yolact_plus_resnet50_54_800000.pth", None) == (
             "yolact_plus_resnet50_config")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        yolact_eval.main(["--devices", "2", "--device=cpu"])
+    # --devices 2: each batch of 2 sharded across two CPU replicas
+    maps2 = yolact_eval.main([
+        "--config", "yolact_plus_resnet50_config", "--valid_images", img_dir,
+        "--valid_info", ann, "--max_images", "4", "--batch_size", "2",
+        "--devices", "2", "--device=cpu"])
+    for kind in maps:
+        for k, v in maps[kind].items():
+            np.testing.assert_allclose(maps2[kind][k], v, atol=1e-6,
+                                       err_msg=(kind, k))
+    # more GPUs than are visible: refused (without CUDA, at the device)
+    with pytest.raises((RuntimeError, ValueError),
+                       match="CUDA is unavailable|under-provision"):
+        yolact_eval.main(["--devices", str(torch.cuda.device_count() + 1),
+                          "--device=cuda"])
 
 
 def test_yolact_train_cli_on_cpu(coco, small_yolact, tmp_path, capsys):

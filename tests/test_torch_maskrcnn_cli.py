@@ -48,8 +48,21 @@ def test_test_net_cli_on_cpu(coco, maskrcnn_ckpt, capsys):
     for s in stats.values():
         assert s.shape == (12,) and np.isfinite(s).all()
     assert "== segm ==" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        test_net.main(["--devices", "all", "--device=cpu"])
+    # --devices 2: each batch of 2 sharded across two CPU replicas, the
+    # same detections (COCOeval stats equal)
+    stats2 = test_net.main([
+        "--config-file", str(ROOT / "configs/e2e_mask_rcnn_R_50_FPN_1x.yaml"),
+        "--images", img_dir, "--annotations", ann, "--max_images", "4",
+        "--batch_size", "2", "--devices", "2", "--device=cpu",
+        "MODEL.WEIGHT", maskrcnn_ckpt, "INPUT.MIN_SIZE_TEST", "48",
+        "INPUT.MAX_SIZE_TEST", "64", *MASKRCNN_OPTS])
+    for k, s in stats.items():
+        np.testing.assert_allclose(stats2[k], s, atol=1e-6, err_msg=k)
+    # more GPUs than are visible: refused (without CUDA, at the device)
+    with pytest.raises((RuntimeError, ValueError),
+                       match="CUDA is unavailable|under-provision"):
+        test_net.main(["--devices", str(torch.cuda.device_count() + 1),
+                       "--device=cuda"])
 
 
 def test_train_net_cli_on_cpu(coco, maskrcnn_ckpt, tmp_path, capsys):

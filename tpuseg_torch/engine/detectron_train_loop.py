@@ -19,9 +19,7 @@ and ``height``, ``load_image(id)`` (RGB) and ``load_target(id)``
 """
 from __future__ import annotations
 
-import math
 import time
-from collections import deque
 
 import numpy as np
 import torch
@@ -33,28 +31,9 @@ from tpuseg_torch.engine.trainer import (call_in_dtype, make_optimizer,
                                          save_checkpoint, set_lr,
                                          warmup_multistep_lr)
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.utils.logging import MovingAverage
 from tpuseg_torch.weights import from_jax
 from tpuseg_torch.weights.npz_io import save_params_npz
-
-
-class MovingAverage:
-    """Sliding-window average of finite values (the port's copy of
-    ``tpuseg/utils/logging.py::MovingAverage``)."""
-
-    def __init__(self, max_window_size: int = 1000):
-        self.max_window_size = max_window_size
-        self.window = deque()
-        self.sum = 0.0
-
-    def add(self, elem: float) -> None:
-        if math.isfinite(elem):
-            self.window.append(elem)
-            self.sum += elem
-            if len(self.window) > self.max_window_size:
-                self.sum -= self.window.popleft()
-
-    def get_avg(self) -> float:
-        return self.sum / max(len(self.window), 1)
 
 
 def _bilinear_axis(t: np.ndarray, n: int):

@@ -23,6 +23,8 @@ from tpuseg_torch.models import maskrcnn_c4 as C4
 from tpuseg_torch.models import retinanet as RN
 from tpuseg_torch.ops.preprocess import (DETECTRON_PIXEL_MEAN_BGR,
                                          detectron_target_size)
+from tpuseg_torch.parallel.inference import ShardedInference
+from tpuseg_torch.parallel.mesh import resolve_devices
 
 # variant -> (model module, its config class); each module has
 # build_model, forward_inference and forward_train_losses
@@ -122,16 +124,22 @@ class MaskRCNNPredictor:
     is moved and cast in place). ``dtype`` is the
     model's (f32 or bf16): its floating tensors and the images are cast to
     it, and the floating outputs come back in f32, as in the JAX
-    predictor.
+    predictor. ``devices`` (``parallel/mesh.py::resolve_devices``): more
+    than one shards each batch across a replica per device, the batch
+    padded with blank canvases to a multiple of their number, as tpuseg's.
     """
 
     def __init__(self, cfg=None, weights: str | None = None, model=None,
                  confidence_threshold: float = 0.5, min_image_size: int = 800,
                  max_image_size: int = 1333, device="cuda", seed: int = 0,
-                 variant: str = "fpn", dtype: torch.dtype = torch.float32):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 variant: str = "fpn", dtype: torch.dtype = torch.float32,
+                 devices=None):
+        if (torch.device(device).type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
+        device_list = resolve_devices(devices, device)
+        self.device = device_list[0]
+        self.n_devices = len(device_list)
         if model is None:
             cfg = cfg or VARIANTS[variant][1]()
             if weights:
@@ -149,14 +157,22 @@ class MaskRCNNPredictor:
         self.confidence_threshold = confidence_threshold
         self.min_image_size = min_image_size
         self.max_image_size = max_image_size
+        self._sharded = (ShardedInference(self._run, self.model, device_list,
+                                          n_batch_args=2)
+                         if self.n_devices > 1 else None)
+
+    def _run(self, model, images: torch.Tensor, image_hw: torch.Tensor):
+        out = self._forward(model, images.to(self.dtype), image_hw)
+        return {k: v.float() if v.is_floating_point() else v
+                for k, v in out.items()}
 
     def forward(self, images: torch.Tensor, image_hw: torch.Tensor) -> dict:
         """The model's ``forward_inference`` on canvases [B, 3, Hc, Wc]
         cast to the predictor's dtype -> padded detections, floating ones
-        in f32."""
-        out = self._forward(self.model, images.to(self.dtype), image_hw)
-        return {k: v.float() if v.is_floating_point() else v
-                for k, v in out.items()}
+        in f32 (with several devices: B must divide across them)."""
+        if self._sharded is not None:
+            return self._sharded(images, image_hw)
+        return self._run(self.model, images, image_hw)
 
     def run_on_bgr_image(self, img_bgr: np.ndarray) -> dict:
         """Single image -> final detections in original-image coords."""
@@ -175,6 +191,11 @@ class MaskRCNNPredictor:
             scales.append(scale)
         if len({c.shape for c in canvases}) != 1:
             raise ValueError("a batch must share one canvas orientation")
+        pad = (-len(canvases)) % self.n_devices
+        # the shards must divide across the devices: blank canvases of
+        # size 1 x 1 fill the batch (1 image on 8 devices pads to 8)
+        canvases += [np.zeros_like(canvases[0])] * pad
+        hws += [(1, 1)] * pad
         images = torch.from_numpy(
             np.stack(canvases).transpose(0, 3, 1, 2).copy()).to(self.device)
         image_hw = torch.tensor(hws, dtype=torch.int64, device=self.device)
@@ -265,7 +286,8 @@ def model_config_from_node(node) -> tuple:
 def build_predictor_from_cfg(node, **kw) -> MaskRCNNPredictor:
     """ConfigNode -> MaskRCNNPredictor for its variant and model config,
     with MODEL.WEIGHT and INPUT.{MIN,MAX}_SIZE_TEST; ``kw`` goes to the
-    predictor (``device``, ``confidence_threshold``, ``dtype``)."""
+    predictor (``device``, ``devices``, ``confidence_threshold``,
+    ``dtype``)."""
     _, cfg = model_config_from_node(node)
     return MaskRCNNPredictor(
         cfg=cfg,

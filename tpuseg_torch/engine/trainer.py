@@ -122,8 +122,10 @@ def cast_floats(model: nn.Module, dtype: torch.dtype) -> dict:
     return out
 
 
-class _Bound(nn.Module):
-    """``fn(model, ...)`` as a module's forward, for ``functional_call``."""
+class Bound(nn.Module):
+    """``fn(model, ...)`` as a module's forward: what ``functional_call``
+    and DistributedDataParallel take, since the losses are functions of the
+    model and DDP synchronises only through its wrapped module's forward."""
 
     def __init__(self, model: nn.Module, fn):
         super().__init__()
@@ -134,14 +136,25 @@ class _Bound(nn.Module):
         return self.fn(self.model, *args, **kwargs)
 
 
+def call_bound(bound: nn.Module, dtype, *args, **kwargs):
+    """A :class:`Bound` (or DDP over one) called on :func:`cast_floats`
+    of its model (``dtype`` None: on the model itself). The casts' backward
+    reaches the f32 masters, where DDP's gradient hooks sit."""
+    if dtype is None:
+        return bound(*args, **kwargs)
+    inner = getattr(bound, "module", bound)  # DDP keeps it as .module
+    prefix = "module.model." if inner is not bound else "model."
+    cast = {prefix + k: v for k, v in cast_floats(inner.model, dtype).items()}
+    return torch.func.functional_call(bound, cast, args, kwargs)
+
+
 def call_in_dtype(model: nn.Module, dtype, fn, *args, **kwargs):
     """``fn(model, *args, **kwargs)`` on :func:`cast_floats` of ``model``
     (``dtype`` None: on the model itself). Everything ``fn`` computes from
     the model's tensors, the losses included, runs inside the call."""
     if dtype is None:
         return fn(model, *args, **kwargs)
-    cast = {f"model.{k}": v for k, v in cast_floats(model, dtype).items()}
-    return torch.func.functional_call(_Bound(model, fn), cast, args, kwargs)
+    return call_bound(Bound(model, fn), dtype, *args, **kwargs)
 
 
 YOLACT_MOMENTUM = 0.9

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.ops.preprocess import yolact_preprocess
+from tpuseg_torch.parallel.inference import ShardedInference
+from tpuseg_torch.parallel.mesh import resolve_devices
 from tpuseg_torch.weights.yolact_map import load_yolact_weights
 
 
@@ -31,15 +33,22 @@ class YolactPredictor:
     """YOLACT inference on ``device``. Weights: a ``state_dict`` with
     upstream's keys, an upstream ``.pth`` (``weights``), or random ones from
     a ``torch.Generator`` seeded with 0. ``dtype`` is the model's (f32 or
-    bf16); ``batch_size`` the chunk :meth:`predict_images` runs at once."""
+    bf16); ``batch_size`` the chunk :meth:`predict_images` runs at once.
+    ``devices`` (``parallel/mesh.py::resolve_devices``): more than one
+    shards each batch across a replica per device
+    (``parallel/inference.py``)."""
 
     def __init__(self, cfg: Y.YolactConfig, state_dict: dict | None = None,
                  weights: str | None = None, batch_size: int = 1,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 devices=None):
+        if (torch.device(device).type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError(
                 "device 'cuda' requested but CUDA is unavailable")
+        device_list = resolve_devices(devices, device)
+        self.device = device_list[0]
+        self.n_devices = len(device_list)
         self.cfg = cfg
         self.batch_size = batch_size
         self.dtype = dtype
@@ -51,18 +60,32 @@ class YolactPredictor:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, dtype).eval()
         self.priors = torch.from_numpy(Y.make_priors_np(cfg)).to(self.device)
+        self._sharded = (ShardedInference(self._run, self.model, device_list)
+                         if self.n_devices > 1 else None)
+
+    def _run(self, model: Y.Yolact, images: torch.Tensor) -> dict:
+        x = yolact_preprocess(images, self.cfg.img_size).to(self.dtype)
+        preds = {k: v.float() for k, v in model(x).items()}
+        return Y.detect(preds, self.priors.to(images.device), self.cfg,
+                        maskiou_net=model.maskiou_net)
 
     def run_batch(self, images_u8) -> dict:
         """uint8 RGB [B, H, W, 3] (numpy or tensor; one size for the batch,
         resized to the model's square input on the device) -> detections
-        on the device: boxes [B, K, 4] normalised xyxy, scores, classes,
-        masks [B, K, Sp, Sp], valid (and mask_scores for YOLACT++)."""
-        images = torch.as_tensor(images_u8).to(self.device)
+        on the (first) device: boxes [B, K, 4] normalised xyxy, scores,
+        classes, masks [B, K, Sp, Sp], valid (and mask_scores for
+        YOLACT++). With several devices, a batch that does not divide
+        across them runs padded with blank images."""
+        images = torch.as_tensor(images_u8)
+        if self._sharded is not None:
+            b = images.shape[0]
+            pad = (-b) % self.n_devices
+            if pad:
+                images = torch.cat([images, images.new_zeros(
+                    (pad,) + images.shape[1:])])
+            return {k: v[:b] for k, v in self._sharded(images).items()}
         with torch.inference_mode():
-            x = yolact_preprocess(images, self.cfg.img_size).to(self.dtype)
-            preds = {k: v.float() for k, v in self.model(x).items()}
-            return Y.detect(preds, self.priors, self.cfg,
-                            maskiou_net=self.model.maskiou_net)
+            return self._run(self.model, images.to(self.device))
 
     def postprocess_image(self, det_i: dict, h: int, w: int,
                           score_threshold: float = 0.0) -> dict:

@@ -17,17 +17,21 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuseg_torch.data.augment import (AugmentConfig, resize_bilinear,
                                        ssd_augment)
-from tpuseg_torch.engine.detectron_train_loop import MovingAverage
-from tpuseg_torch.engine.trainer import (call_in_dtype, ckpt_path,
+from tpuseg_torch.engine.trainer import (Bound, call_bound, ckpt_path,
                                          make_yolact_optimizer,
                                          parse_ckpt_iter,
                                          save_yolact_checkpoint, set_lr,
                                          yolact_lr_schedule)
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.models import yolact_loss as YL
+from tpuseg_torch.parallel import ddp
+from tpuseg_torch.parallel.mesh import world
+from tpuseg_torch.parallel.sync_bn import convert_sync_bn
+from tpuseg_torch.utils.logging import MovingAverage
 from tpuseg_torch.weights.from_jax import yolact_jax_from_state_dict
 from tpuseg_torch.weights.npz_io import save_params_npz
 from tpuseg_torch.weights.yolact_map import load_yolact_weights
@@ -122,30 +126,34 @@ def train_losses(model: Y.Yolact, images, targets, priors, draws, loss_cfg,
 def train_step(model: Y.Yolact, optimizer, lr: float, images: torch.Tensor,
                targets: dict, priors: torch.Tensor, draws: torch.Tensor,
                loss_cfg: YL.YolactLossConfig,
-               compute_dtype: torch.dtype | None = None) -> dict:
+               compute_dtype: torch.dtype | None = None,
+               bound=None) -> dict:
     """One SGD step at ``lr``: ``forward_train``, ``total_loss`` on the
     mask-subset ``draws`` [B, N], backward, the optimizer's step -> the
     detached losses (on the device: reading them is the caller's
     synchronisation). ``compute_dtype`` (bf16) is ``YolactTrainer``'s
     mixed precision: the forward and backward on a cast of the model and
     the images (:func:`~tpuseg_torch.engine.trainer.cast_floats`), the f32
-    masters in the optimizer."""
+    masters in the optimizer. ``bound``: ``train_losses`` bound to
+    ``model`` and wrapped in DDP (``parallel/ddp.py::wrap``); the losses
+    returned are then the global batch's, on every rank."""
     set_lr(optimizer, lr)
     if compute_dtype is not None:
         images = images.to(compute_dtype)
-    losses = call_in_dtype(model, compute_dtype, train_losses, images,
-                           targets, priors, draws, loss_cfg, compute_dtype)
+    losses = call_bound(bound or Bound(model, train_losses), compute_dtype,
+                        images, targets, priors, draws, loss_cfg,
+                        compute_dtype)
     optimizer.zero_grad(set_to_none=True)
     losses["total"].backward()
     optimizer.step()
-    return {k: v.detach() for k, v in losses.items()}
+    return ddp.mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
 
 def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
           save_every=10000, save_folder="weights/", cfg_name="yolact_base",
           resume=None, start_iter=-1, log_every=10, max_steps=None,
           loss_cfg=None, model=None, device="cuda", save_format="pth",
-          compute_dtype: torch.dtype | None = None):
+          compute_dtype: torch.dtype | None = None, use_mesh: bool = True):
     """yolact train.py's main loop on ``device`` (the card unless the
     caller asks for ``"cpu"``) -> (model, iterations run, per-iteration
     loss dicts).
@@ -154,14 +162,25 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     ``configs.presets.yolact_loss_config`` gives a preset's (YOLACT++: the
     FastMaskIoUNet term). ``model`` defaults to ``build_model`` with random
     weights from seed 0; ``resume`` loads a ``<cfg>_<epoch>_<iter>.pth``
-    through ``load_yolact_weights`` and continues from its iteration (``start_iter`` >= 0 overrides it).
-    BatchNorm trains (batch statistics, running statistics updated) unless
-    the batch is below 6, where yolact disables it (``freeze_bn``).
+    through ``load_yolact_weights`` and continues from its iteration
+    (``start_iter`` >= 0 overrides it). BatchNorm trains (batch
+    statistics, running statistics updated) unless the batch a device
+    sees is below 6, where yolact disables it (``freeze_bn``).
     Augmentation draws from ``numpy.random.default_rng(42)``, the
     mask-subset draws from a ``torch.Generator`` on ``device`` seeded
-    with 7. ``save_format`` "pth" writes upstream's state_dict, "npz" the
-    JAX package's param tree (``<cfg>_<epoch>_<iter>.npz``);
-    ``compute_dtype`` bf16: see :func:`train_step`."""
+    with 7. ``save_format``
+    "pth" writes upstream's state_dict, "npz" the JAX package's param tree
+    (``<cfg>_<epoch>_<iter>.npz``); ``compute_dtype`` bf16: see
+    :func:`train_step`.
+
+    ``use_mesh``: under a process group (``torchrun``, one process per
+    GPU, ``device`` this rank's), train with DDP on the global
+    ``batch_size``, each rank ``batch_size / world size`` of it: every
+    rank builds the global batch and its draws from the seeds and keeps
+    its rows, the losses are normalised over the global batch and
+    train-mode BatchNorm is synchronised, so N ranks take the step one
+    process takes (tpuseg's sharded step). Rank 0 logs and saves. Without
+    a group, one device; ``use_mesh=False`` under a group raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
@@ -172,10 +191,31 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     if resume:  # through the weight map, as tpuseg's resume
         model.load_state_dict(load_yolact_weights(resume), strict=True)
         it = parse_ckpt_iter(resume) if start_iter < 0 else start_iter
-    model.freeze_bn = batch_size < 6
+    distributed = dist.is_available() and dist.is_initialized()
+    if distributed and not use_mesh:
+        raise ValueError("use_mesh=False under a process group: the losses "
+                         "would be normalised over ranks that do not "
+                         "average their gradients")
+    rank, ws = world()
+    if batch_size % ws:
+        raise ValueError(f"batch_size {batch_size} does not divide across "
+                         f"{ws} ranks")
+    lo, hi = rank * batch_size // ws, (rank + 1) * batch_size // ws
+    # yolact train.py: a batch below 6 per GPU disables BatchNorm
+    model.freeze_bn = hi - lo < 6
+    if ws > 1 and not model.freeze_bn:
+        convert_sync_bn(model)
     model = model.to(dev).train()
     lr_fn = yolact_lr_schedule()
     opt = make_yolact_optimizer(model)
+    bound = None
+    if distributed:
+        # found by running the step: only FastMaskIoUNet can be left out
+        # of the graph, when the loss has no I term
+        bound = ddp.wrap(Bound(model, train_losses), dev,
+                         find_unused_parameters=(
+                             model.maskiou_net is not None
+                             and not loss_cfg.use_maskiou))
     priors = torch.from_numpy(Y.make_priors_np(model_cfg)).to(dev)
     batches = batch_iterator(dataset, model_cfg, np.random.default_rng(42),
                              batch_size)
@@ -185,19 +225,21 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     epoch_size = max(len(dataset.image_ids) // batch_size, 1)
     history = []
     while it < max_iter and (max_steps is None or len(history) < max_steps):
-        images, targets = batch_to_device(*next(batches), dev)
+        images, targets = next(batches)
+        images, targets = batch_to_device(
+            images[lo:hi], {k: v[lo:hi] for k, v in targets.items()}, dev)
         draws = torch.rand((batch_size, priors.shape[0]), generator=gen,
-                           device=dev)
+                           device=dev)[lo:hi]
         t0 = time.perf_counter()
         losses = train_step(model, opt, lr_fn(it), images, targets, priors,
-                            draws, loss_cfg, compute_dtype)
+                            draws, loss_cfg, compute_dtype, bound)
         losses = {k: float(v) for k, v in losses.items()}
         t_avg.add(time.perf_counter() - t0)
         history.append(losses)
         for k, v in losses.items():
             avgs.setdefault(k, MovingAverage(100)).add(v)
         it += 1
-        if it % log_every == 0:
+        if rank == 0 and it % log_every == 0:
             eta = (max_iter - it) * t_avg.get_avg()
             terms = " | ".join(f"{k}: {avgs[k].get_avg():.3f}"
                                for k in LOSS_KEYS if k in avgs)
@@ -205,7 +247,7 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
                   f"T: {avgs['total'].get_avg():.3f} || "
                   f"ETA: {eta / 3600:.2f}h || {t_avg.get_avg():.3f}s/it",
                   flush=True)
-        if it % save_every == 0:
+        if rank == 0 and it % save_every == 0:
             path = ckpt_path(save_folder, cfg_name, it // epoch_size, it,
                              save_format)
             if save_format == "npz":

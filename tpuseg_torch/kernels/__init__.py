@@ -12,8 +12,10 @@ of a kernel, a CUDA tensor takes the kernel, any other device raises.
 (to compare the two on one card). There is no fallback: a CUDA tensor whose
 kernel cannot be built or launched raises.
 
-Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, and nowhere else, so a run can show that it went through the kernels.
+Each kernel wrapper adds one to ``LAUNCHES[name]`` (:func:`count_launch`,
+under a lock: replicas launch from threads of their own) where it launches
+its kernel, and nowhere else, so a run can show that it went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -69,15 +72,26 @@ LAUNCHES = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "dcn_sample": 0,
             "dcn_sample_bwd": 0}
 
 _state = {"lib": None, "force_plain": False}
+# the replicas of parallel/inference.py launch from one thread each
+_launch_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: the wrappers call this where they
+    launch, and nowhere else."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _launch_lock:
+        return dict(LAUNCHES)
 
 
 @contextlib.contextmanager

@@ -53,7 +53,7 @@ def sample_points(feats: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                         None if m is None else m.data_ptr(), b, h, w, c, s,
                         out.data_ptr(), K.stream_ptr(dev))
         K.check_status(status, "dcn_sample kernel")
-        K.LAUNCHES["dcn_sample"] += 1
+        K.count_launch("dcn_sample")
     return out
 
 
@@ -91,6 +91,6 @@ def sample_points_backward(grad: torch.Tensor, feats: torch.Tensor,
                         None if m is None else m.data_ptr(), grad.data_ptr(),
                         b, h, w, c, s, *ptr, K.stream_ptr(dev))
         K.check_status(status, "dcn_sample_bwd kernel")
-        K.LAUNCHES["dcn_sample_bwd"] += 1
+        K.count_launch("dcn_sample_bwd")
     df = None if acc is None else acc.permute(0, 3, 1, 2).to(feats.dtype)
     return df, dsy, dsx, dm

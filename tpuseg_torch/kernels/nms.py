@@ -50,5 +50,5 @@ def nms_keep(boxes: torch.Tensor, order: torch.Tensor, svalid: torch.Tensor,
             ctypes.c_float(iou_threshold), ctypes.c_float(to_remove),
             K.stream_ptr(dev))
     K.check_status(status, "nms kernel")
-    K.LAUNCHES["nms"] += 1
+    K.count_launch("nms")
     return keep

@@ -78,7 +78,7 @@ def multilevel_roi_align(feats, boxes: torch.Tensor, batch_idx: torch.Tensor,
     if n:
         _launch(_ENTRY[f0.dtype], arrays, b, c, boxes, batch_idx, levels, n,
                 p, s, out, dev)
-        K.LAUNCHES["roi_align"] += 1
+        K.count_launch("roi_align")
     return out.permute(0, 3, 1, 2)
 
 
@@ -120,6 +120,6 @@ def multilevel_roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
     if n:
         _launch(_ENTRY_BWD[grad.dtype], arrays, b, c, boxes, batch_idx,
                 levels, n, p, s, grad, dev, int(nchw), int(merge))
-        K.LAUNCHES["roi_align_bwd"] += 1
+        K.count_launch("roi_align_bwd")
     return tuple(a.view(b, sh[2], sh[3], c).permute(0, 3, 1, 2)
                  for a, sh in zip(acc.to(dtype).split(sizes), feat_shapes))

@@ -31,6 +31,7 @@ from tpuseg_torch.nn.layers import FrozenBatchNorm2d
 from tpuseg_torch.nn.resnet import ResNet
 from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops import sampling
+from tpuseg_torch.parallel import ddp
 
 
 @dataclass(frozen=True)
@@ -320,7 +321,8 @@ def rpn_proposals(logits: list, deltas: list, anchors, image_hw: torch.Tensor,
     at 800x1344 has only 819 anchors), decode, clip, NMS 0.7 with +1
     extents; then the top P survivors over all levels (with
     ``fpn_post_nms_per_batch``, only those at or above the batch-wide P-th
-    score, upstream's select_over_all_levels in training). Upstream's
+    score, upstream's select_over_all_levels in training; under a process
+    group, the global batch's, as in tpuseg's sharded step). Upstream's
     remove_small_boxes keeps every box at its MIN_SIZE of 0, so it is not
     ported.
     """
@@ -347,9 +349,9 @@ def rpn_proposals(logits: list, deltas: list, anchors, image_hw: torch.Tensor,
     if cfg.fpn_post_nms_per_batch:
         # a batch-wide gate at the k-th score keeps the padded [B, P] shape;
         # the per-image top-k below then passes all that survive it
-        k = min(cfg.fpn_post_nms_top_n, all_scores.numel())
         flat = all_scores.masked_fill(~all_valid, float("-inf")).reshape(-1)
-        all_valid = all_valid & (all_scores >= torch.topk(flat, k).values[-1])
+        all_valid = all_valid & (all_scores >= ddp.global_kth_largest(
+            flat, cfg.fpn_post_nms_top_n))
     top_s, idx, valid = box_ops.masked_topk(all_scores, all_valid,
                                             cfg.fpn_post_nms_top_n)
     return box_ops.gather_along_n(all_boxes, idx), top_s, valid
@@ -467,8 +469,12 @@ def forward_inference(model: MaskRCNN, images: torch.Tensor,
 
 
 def _uniform_pairs(b: int, n: int, generator, dev) -> list:
-    return [(torch.rand(n, generator=generator, device=dev),
-             torch.rand(n, generator=generator, device=dev)) for _ in range(b)]
+    """b images' (positive, negative) draws of n uniforms each, as this
+    rank's rows of the global batch's (``parallel/ddp.py::global_rows``)."""
+    return ddp.global_rows(
+        lambda rows: [(torch.rand(n, generator=generator, device=dev),
+                       torch.rand(n, generator=generator, device=dev))
+                      for _ in range(rows)], b)
 
 
 def forward_train_losses(model: MaskRCNN, images: torch.Tensor,
@@ -485,7 +491,8 @@ def forward_train_losses(model: MaskRCNN, images: torch.Tensor,
     ``{"rpn": [(pos, neg)] * B, "roi": [(pos, neg)] * B}`` with vectors of
     the number of anchors and of proposals + G, else from ``generator`` (on
     the images' device; None = its default generator), RPN then RoI, per
-    image positives then negatives. ``mask_crops`` is not read when
+    image positives then negatives (under a process group, each rank's
+    rows of the draws for the global batch). ``mask_crops`` is not read when
     ``mask_on`` is False (Faster R-CNN: four losses and ``total``).
 
     The RPN outputs are detached before proposal generation, which runs

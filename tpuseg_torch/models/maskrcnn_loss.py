@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.core import boxes as box_ops
 from tpuseg_torch.ops.sampling import roi_align
+from tpuseg_torch.parallel import ddp
 
 
 @dataclass(frozen=True)
@@ -136,7 +137,8 @@ def rpn_loss(objectness: torch.Tensor, deltas: torch.Tensor,
         bce = _bce_with_logits(x, sel_pos.to(x.dtype))
         obj_terms.append(torch.where(sel_valid, bce, torch.zeros_like(bce)).sum())
         counts.append(sel_valid.sum())
-    total = torch.stack(counts).sum().clamp(min=1).to(objectness.dtype)
+    total = ddp.denominator(torch.stack(counts).sum(), 1).to(
+        objectness.dtype)
     return {"loss_rpn_box_reg": torch.stack(box_terms).sum() / total,
             "loss_objectness": torch.stack(obj_terms).sum() / total}
 
@@ -182,7 +184,7 @@ def box_head_loss(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
     d_cls = d.gather(1, labels[:, None, None].expand(-1, 1, 4))[:, 0]
     l1 = smooth_l1(d_cls, sample["reg_target"], beta=1.0).sum(-1)
     box_l = torch.where(pos, l1, torch.zeros_like(l1)).sum()
-    total = valid.sum().clamp(min=1).to(cls_logits.dtype)
+    total = ddp.denominator(valid.sum(), 1).to(cls_logits.dtype)
     return {"loss_classifier": cls_l / total, "loss_box_reg": box_l / total}
 
 
@@ -218,6 +220,6 @@ def mask_head_loss_selected(x: torch.Tensor, sample: dict,
     divided by their number."""
     per = _bce_with_logits(x, targets28).mean(dim=(1, 2))
     pos = sample["pos"]
-    total = pos.sum().clamp(min=1).to(x.dtype)
+    total = ddp.denominator(pos.sum(), 1).to(x.dtype)
     return {"loss_mask": torch.where(pos, per, torch.zeros_like(per)).sum()
             / total}

@@ -35,6 +35,7 @@ from tpuseg_torch.nn.fpn import FPN, Backbone, LastLevelP6P7
 from tpuseg_torch.nn.resnet import ResNet
 from tpuseg_torch.ops import nms as nms_ops
 from tpuseg_torch.ops.losses import sigmoid_focal_loss
+from tpuseg_torch.parallel import ddp
 
 
 @dataclass(frozen=True)
@@ -312,9 +313,10 @@ def forward_train_losses(model: RetinaNet, images: torch.Tensor,
         n_pos.append(pos.sum())
     num_pos = torch.stack(n_pos).sum().to(all_logits.dtype)
     losses = {
-        "loss_retina_cls": torch.stack(cls_terms).sum() / (num_pos + b),
+        "loss_retina_cls": torch.stack(cls_terms).sum()
+        / ddp.denominator(num_pos + b),
         "loss_retina_reg": torch.stack(reg_terms).sum()
-        / (num_pos * cfg.bbox_reg_norm).clamp(min=1.0),
+        / ddp.denominator(num_pos * cfg.bbox_reg_norm, 1.0),
     }
     losses["total"] = losses["loss_retina_cls"] + losses["loss_retina_reg"]
     return losses

@@ -18,8 +18,9 @@ the batch dimension is written out where the JAX package vmaps:
   I: (YOLACT++) smooth-L1 between FastMaskIoUNet's prediction on the
      assembled masks and their true IoU with the gt (alpha 25).
 
-B, C, M and I are divided by the batch's positives, S by the batch size.
-Nothing here reads a value back to the host.
+B, C, M and I are divided by the batch's positives, S by the batch size;
+under a process group, the global batch's (``parallel/ddp.py``). Nothing
+here reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.core import boxes as box_ops
+from tpuseg_torch.parallel import ddp
 
 
 @dataclass(frozen=True)
@@ -250,10 +252,10 @@ def total_loss(preds: dict, sem_logits: torch.Tensor, targets: dict,
     l_sem = semantic_loss(sem_logits, targets["classes"],
                           targets["masks_sem"], cfg, gt_crowd=targets["crowd"])
     l_conf = ohem_conf_loss(preds["conf"], conf_t, cfg)
-    total_pos = pos.sum().clamp(min=1)
+    total_pos = ddp.denominator(pos.sum(), 1)
     losses = {"B": l_loc / total_pos, "C": l_conf / total_pos,
               "M": l_mask.sum() / total_pos,
-              "S": l_sem.sum() / preds["loc"].shape[0]}
+              "S": l_sem.sum() / ddp.denominator(preds["loc"].shape[0])}
     if cfg.use_maskiou and maskiou_net is not None:
         losses["I"] = mask_iou_loss(maskiou_net, miou, cfg) / total_pos
     losses["total"] = sum(losses.values())

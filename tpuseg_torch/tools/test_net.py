@@ -6,7 +6,8 @@ yaml picks Mask R-CNN or Faster R-CNN over FPN or C4, or RetinaNet.
         --config-file configs/e2e_mask_rcnn_R_50_FPN_1x.yaml \
         --images datasets/coco/val2017 \
         --annotations datasets/coco/annotations/instances_val2017.json \
-        MODEL.WEIGHT weights/e2e_mask_rcnn_R_50_FPN_1x.pth [--device=cpu]
+        MODEL.WEIGHT weights/e2e_mask_rcnn_R_50_FPN_1x.pth [--device=cpu] \
+        [--devices all]
 
 Without MODEL.WEIGHT the model has random weights (seed 0). Prints the
 bbox COCOeval table, and the segm one for the models with a mask head.
@@ -22,16 +23,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--max_images", type=int, default=None)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--devices", default=None,
-                    help="one device only: multi-GPU is not ported yet "
-                         "(ROADMAP.md §1, Multi-GPU)")
+                    help="'all' or N: shard each batch across that many "
+                         "devices of --device's type (one replica each)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("opts", nargs=argparse.REMAINDER,
                     help="dotted config overrides, e.g. MODEL.WEIGHT path")
     args = ap.parse_args(argv)
-    if args.devices not in (None, "1"):
-        raise NotImplementedError(
-            f"--devices {args.devices}: multi-GPU evaluation is not ported "
-            "yet (ROADMAP.md §1, Multi-GPU)")
 
     from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
     from tpuseg_torch.engine.config import ConfigNode
@@ -47,7 +44,8 @@ def main(argv=None) -> dict:
     if args.opts:
         cfg.merge_from_list(args.opts)
 
-    predictor = build_predictor_from_cfg(cfg, device=args.device)
+    predictor = build_predictor_from_cfg(cfg, device=args.device,
+                                         devices=args.devices)
     dataset = CocoDetectionDataset(
         cfg.DATASETS.IMAGES, cfg.DATASETS.ANNOTATIONS, label_map=None)
     return evaluate_coco(predictor, dataset, max_images=args.max_images,

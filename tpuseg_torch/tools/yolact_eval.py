@@ -6,7 +6,8 @@
     # result jsons under results/ and their COCOeval)
     python -m tpuseg_torch.tools.yolact_eval \
         --trained_model=weights/yolact_plus_resnet50_54_800000.pth \
-        [--valid_images=dir --valid_info=instances.json] [--device=cpu]
+        [--valid_images=dir --valid_info=instances.json] [--device=cpu] \
+        [--devices all]
     # one image, or a folder
     python -m tpuseg_torch.tools.yolact_eval --trained_model=... \
         --image=input.jpg:output.jpg
@@ -56,14 +57,10 @@ def main(argv=None):
                          "priors by max class score before per-class NMS "
                          "(0 = off/reference-exact)")
     ap.add_argument("--devices", default=None,
-                    help="one device only: multi-GPU is not ported yet "
-                         "(ROADMAP.md §1, Multi-GPU)")
+                    help="'all' or N: shard each batch across that many "
+                         "devices of --device's type (one replica each)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.devices not in (None, "1"):
-        raise NotImplementedError(
-            f"--devices {args.devices}: multi-GPU evaluation is not ported "
-            "yet (ROADMAP.md §1, Multi-GPU)")
 
     import dataclasses
 
@@ -84,7 +81,7 @@ def main(argv=None):
     predictor = YolactPredictor(
         mcfg, weights=args.trained_model, batch_size=bs,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.device)
+        device=args.device, devices=args.devices)
     print(f"config: {cfg_name}  backbone: {mcfg.backbone}  "
           f"weights: {args.trained_model or '(random init)'}")
 

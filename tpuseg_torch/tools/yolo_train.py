@@ -73,7 +73,7 @@ def main(argv=None) -> list:
     import torch
 
     from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
-    from tpuseg_torch.engine.detectron_train_loop import MovingAverage
+    from tpuseg_torch.utils.logging import MovingAverage
     from tpuseg_torch.engine.yolo_engine import YoloTrainer
     from tpuseg_torch.models import yolov3 as Y
     from tpuseg_torch.weights.from_jax import yolov3_jax_from_state_dict
