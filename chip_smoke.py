@@ -188,6 +188,23 @@ Phases, one line each; any failure raises and exits non-zero:
      torch.distributed.run at world size 1 against phase 13's run,
      yolact_eval --devices all and test_net --devices 1 against phase 13's,
      and test_net asking for one GPU more than there are, refused.
+  19. the parity gate (tpuseg_torch/tools/parity_gate.py) as a user runs
+     it, with --device cuda: (a) its smoke mode (the six families on its
+     2-image dataset, random weights) through the kernels and the plain
+     versions (TF32 off, deterministic cuDNN): six rows measured, none
+     FAILED, each family's K1, K2 and K4 launches as its code makes them,
+     what each family's evaluation scored (loadRes's results; YOLACT's
+     postprocess_image) equal bit for bit; (b) its real mode at the
+     published sizes (YOLACT 550, the detectron family 800/1333, YOLOv3
+     608, Pose2Seg 512) over phase 13's dataset and a keypoint dataset as
+     --ochuman_*, --max_images 16, on six checkpoints under upstream's
+     file names and in upstream's formats written from numpy seeds: every
+     row measured, the PASS or ATTENTION line, the launches, every K1, K2
+     and K4 call of the run equal bit for bit to its plain version on its
+     own inputs, each family's seconds and img/s on the host clock; (c) in
+     subprocesses: without yolov3.weights its row is SKIP and the exit
+     status 0; a family made to raise gives its FAILED row, the verdict
+     FAIL and exit status 1.
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Phase 18 runs
 this file as its ranks' program: ``--rank JOB BACKEND DIR`` (a rank of
@@ -257,6 +274,7 @@ from tpuseg_torch.ops.preprocess import yolact_preprocess
 from tpuseg_torch.parallel import ddp as PDDP
 from tpuseg_torch.parallel.mesh import ThreadGroup
 from tpuseg_torch.parallel.sync_bn import convert_sync_bn
+from tpuseg_torch.tools import parity_gate as PG
 from tpuseg_torch.weights import from_jax as FJ
 from tpuseg_torch.weights.npz_io import load_params_npz, save_params_npz
 from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
@@ -1208,7 +1226,8 @@ def calibrate_yolact_gate(model, images: torch.Tensor, want=(10, 80),
         conf = model(images)["conf"].double()
         fg_max = conf[..., 1:].amax(-1)
         fg_lse = torch.logsumexp(conf[..., 1:], -1)
-        for shift in np.arange(0.0, 40.0, 0.05):
+        # plain YOLACT R-50's logits (phase 19) need a shift past 40
+        for shift in np.arange(0.0, 80.0, 0.05):
             # the best foreground softmax score with the shifted background
             best = torch.exp(fg_max - torch.logaddexp(conf[..., 0] + shift,
                                                       fg_lse))
@@ -5682,6 +5701,352 @@ def phase_multi_gpu(dev, tmp: Path, coco: dict, card: str) -> dict:
     return {"counts": counts, "times": times, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the parity gate (tpuseg_torch/tools/parity_gate.py)
+# ---------------------------------------------------------------------------
+
+GATE_NAMES = [f["name"] for f in PG.FAMILIES]
+GATE_MAX_IMAGES = 16  # phase 13's COCO dataset; the keypoint one has 8
+GATE_SMOKE_PEOPLE = 4  # max_people of the gate's smoke Pose2Seg config
+GATE_SECONDS = 300  # a gate subprocess's time limit
+
+
+@contextlib.contextmanager
+def gate_runs():
+    """The gate's runners wrapped while the block runs: for each family,
+    the kernels' launch counts set to 0 just before it and read just after,
+    its seconds on the host clock (the runner's, and its evaluation
+    call's) and what its evaluation scored (``scored``: the results of
+    each loadRes call; YOLACT's, each image's postprocess_image)."""
+    runs, orig = {}, dict(PG.RUNNERS)
+    with clocked(YE, ("evaluate_dataset",)) as e1, \
+            clocked(ME, ("evaluate_coco",)) as e2, \
+            clocked(YOE, ("evaluate_coco_boxes",)) as e3, \
+            clocked(P2SE, ("evaluate_pose2seg",)) as e4, \
+            recording_calls(COCO, "loadRes") as res_calls, \
+            recording_calls(YolactPredictor, "postprocess_image") as post:
+        def evaluating():
+            return e1[0] + e2[0] + e3[0] + e4[0]
+
+        def wrap(name, fn):
+            def run(*args, **kwargs):
+                res_calls.clear()
+                post.clear()
+                ev = evaluating()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.synchronize()
+                    scored = ([out for _, _, out in post] if post else
+                              [a[1] for a, _, _ in res_calls])
+                    runs[name] = {
+                        "launches": kernels.launch_counts(),
+                        "s": time.perf_counter() - t0,
+                        "eval_s": evaluating() - ev, "scored": scored,
+                        "detections": sum(len(r["scores"]) if post else
+                                          len(r) for r in scored)}
+            return run
+
+        PG.RUNNERS.update({n: wrap(n, f) for n, f in orig.items()})
+        try:
+            yield runs
+        finally:
+            PG.RUNNERS.update(orig)
+
+
+def require_same_results(got: list, want: list, what: str) -> None:
+    """Two runs' loadRes results, call by call and detection by detection:
+    equal bit for bit (image, category, box, score and mask RLE)."""
+    if [len(r) for r in got] != [len(r) for r in want]:
+        raise AssertionError(f"{what}: kernels vs plain give other "
+                             "per-call detection counts")
+    for g, w in zip((d for r in got for d in r), (d for r in want for d in r)):
+        if g != w:
+            raise AssertionError(f"{what}: kernels vs plain differ: {g} vs "
+                                 f"{w}")
+
+
+def require_same_calls(nms_calls: list, roi_calls: list,
+                       dcn_calls: list) -> str:
+    """Each recorded K1, K2 and K4 call against its plain version on its
+    own inputs, equal bit for bit -> how many of each."""
+    check_nms_calls(nms_calls)
+    check_roi_calls(roi_calls)
+    for args, _, out in dcn_calls:
+        want = sampling.sample_points_plain(*args)
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"dcn_sample {tuple(args[0].shape)} S={args[1].shape[1]}: "
+                "differs from the plain version by "
+                f"{float((out - want).abs().max())}")
+    return (f"{len(nms_calls)} NMS calls (keep masks), {len(roi_calls)} "
+            f"RoIAlign calls and {len(dcn_calls)} DCN sampling calls equal "
+            "to the plain versions on their own inputs, bit for bit")
+
+
+def gate_images(flags: dict, name: str) -> tuple:
+    """(dataset, image ids) that the gate evaluates for a family."""
+    images, ann = flags["--coco_images"], flags["--coco_ann"]
+    if name == "pose2seg" and "--ochuman_val" in flags:
+        images, ann = flags["--ochuman_images"], flags["--ochuman_val"]
+    ds = CocoDetectionDataset(images, ann, label_map=None)
+    return ds, ds.image_ids[:int(flags["--max_images"])]
+
+
+def gate_expected(flags: dict, name: str, max_people: int) -> dict:
+    """A family's kernel launches over the images the gate gives it, as
+    its code makes them: a forward an image (evaluate_coco at batch 1) of
+    6 K1 + 2 K2 (Mask R-CNN FPN), 2 K1 (C4) or 1 K1 (RetinaNet); one K1 a
+    YOLOv3 batch of 2; one K4 a chunk of ``max_people`` people of a
+    Pose2Seg image; none for YOLACT R-50 (no DCN; Fast-NMS is torch)."""
+    ds, ids = gate_images(flags, name)
+    n = len(ids)
+    if name == "pose2seg":
+        return per({"dcn_sample": sum(
+            -(-len(P2SE.image_keypoints(ds, i)) // max_people)
+            for i in ids)})
+    return per({"mask_rcnn_r50_fpn": {"nms": 6 * n, "roi_align": 2 * n},
+                "mask_rcnn_r50_c4": {"nms": 2 * n},
+                "retinanet_r50": {"nms": n},
+                "yolov3_608": {"nms": -(-n // 2)}}.get(name, {}))
+
+
+def check_gate(rows: list, runs: dict, text: str, flags: dict,
+               max_people: int, what: str) -> None:
+    """All six families measured, no FAILED row, and each family's
+    launches as gate_expected has them."""
+    if [r[0] for r in rows] != GATE_NAMES or any(r[1] is None
+                                                 for r in rows):
+        raise AssertionError(f"{what}: rows {[(r[0], r[3]) for r in rows]}")
+    if PG.failed(rows) or "FAILED" in text:
+        raise AssertionError(f"{what}: a family failed\n{text}")
+    for name in GATE_NAMES:
+        want = gate_expected(flags, name, max_people)
+        if runs[name]["launches"] != want:
+            raise AssertionError(f"{what} {name}: launched "
+                                 f"{runs[name]['launches']}, want {want}")
+
+
+def gate_row(name: str, measured: dict, run: dict) -> str:
+    return (f"{name} " + " ".join(f"{k} {v:.4f}" for k, v in measured.items())
+            + f", {run['detections']} detections, launches "
+            f"{compact(run['launches'])}")
+
+
+def table_row(text: str, name: str) -> list:
+    """The gate's table lines of a family."""
+    return [ln for ln in text.splitlines() if ln.startswith(f"{name:<22}")]
+
+
+def measured_in(text: str, name: str) -> bool:
+    """A family's table lines name a metric (its row was measured)."""
+    rows = table_row(text, name)
+    return bool(rows) and all(ln[22:29].strip() not in ("", "-")
+                              for ln in rows)
+
+
+def write_gate_weights(root: Path, data: dict, kp_case: tuple, dev) -> dict:
+    """The six checkpoints of the gate under upstream's file names and in
+    upstream's formats, from numpy seeds: maskrcnn-benchmark's
+    ``{"model": ...}`` files (the FPN's as phase 13's; C4's, with its
+    duplicate res5, and RetinaNet's calibrated as phase 14's), dbolya's
+    YOLACT R-50 state dict (its background logit shifted as phase 13's),
+    darknet's yolov3.weights (phase 16's recipe) and Pose2Seg's last.pkl
+    (calibrated as phase 15's on ``kp_case``) -> how each was
+    calibrated."""
+    root.mkdir(parents=True)
+    path = {f["name"]: root / f["weight"] for f in PG.FAMILIES}
+    how = {}
+    torch.save({"model": synthetic_state_dict(
+        M.build_model(M.MaskRCNNConfig()), SEED)}, path["mask_rcnn_r50_fpn"])
+    for name, variant in (("mask_rcnn_r50_c4", "c4"),
+                          ("retinanet_r50", "retinanet")):
+        sd, how[name] = family_state_dict(variant, ME.VARIANTS[variant][1](),
+                                          dev, train=False)
+        torch.save({"model": with_shared_res5(sd) if variant == "c4"
+                    else sd}, path[name])
+    cfg = yolact_model_config("yolact_resnet50_config")
+    model = YM.build_model(cfg)
+    model.load_state_dict(synthetic_yolact_state_dict(model, SEED + 50),
+                          strict=True)
+    model = model.to(dev)
+    images = np.stack([resize_bilinear_u8(data["pixels"][i], cfg.img_size,
+                                          cfg.img_size)
+                       for i in data["ds"].image_ids])
+    shift = calibrate_yolact_gate(
+        model, yolact_preprocess(torch.from_numpy(images).to(dev),
+                                 cfg.img_size), want=(10, 500), margin=0.0)
+    how["yolact_r50_550"] = f"background logit +{shift:.2f}"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               path["yolact_r50_550"])
+    del model
+    write_darknet_weights(path["yolov3_608"], Y3.YoloV3Config(input_size=608),
+                          SEED + 40)
+    p2s_cfg = P2S.Pose2SegConfig()
+    sd = synthetic_pose2seg_state_dict(p2s_cfg, SEED + 30)
+    margin = calibrate_pose2seg(sd, p2s_cfg, *kp_case, dev)
+    how["pose2seg"] = f"classifier margin {margin:.4g} removed"
+    torch.save(sd, path["pose2seg"])
+    torch.cuda.empty_cache()
+    return how
+
+
+def gate_process(argv: list, inject: str | None = None) -> tuple:
+    """``python -m tpuseg_torch.tools.parity_gate ARGV`` in a subprocess
+    (with ``inject``, YOLOv3's evaluation first made to raise that error)
+    -> (exit status, its output)."""
+    code = ["import runpy, sys"]
+    if inject:
+        code += ["from tpuseg_torch.engine import yolo_engine",
+                 "def boom(*a, **k):",
+                 f"    raise RuntimeError({inject!r})",
+                 "yolo_engine.evaluate_coco_boxes = boom"]
+    code += [f"sys.argv = ['parity_gate'] + {argv!r}",
+             "runpy.run_module('tpuseg_torch.tools.parity_gate', "
+             "run_name='__main__')"]
+    proc = subprocess.run([sys.executable, "-c", "\n".join(code)],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True,
+                          timeout=GATE_SECONDS)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def phase_gate(dev, data: dict, tmp: Path, card: str) -> dict:
+    """Phase 19: the parity gate as a user runs it, ``--device cuda``: its
+    smoke mode through the kernels and the plain versions; its real mode
+    at the published sizes over phase 13's dataset and a keypoint dataset,
+    on six synthetic checkpoints in upstream's formats; a missing weight
+    file; a family that raises."""
+    from tpuseg_torch.kernels import dcn as dcn_kernel
+
+    t0 = time.perf_counter()
+    device = dev.type
+    out = {"counts": {}, "times": {}}
+
+    # (a) smoke mode, kernels vs plain (TF32 off, deterministic cuDNN)
+    images, ann = PG.write_smoke_dataset(str(tmp / "smoke"))
+    smoke_flags = {"--coco_images": images, "--coco_ann": ann,
+                   "--max_images": "2"}
+    smoke = {}
+    with exact_convs():
+        for path, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", kernels.force_plain)):
+            with ctx(), gate_runs() as runs, quiet() as buf:
+                rows = PG.main(["--smoke", "--device", device])
+            smoke[path] = (rows, runs, buf.getvalue())
+    (rows, runs, text), (prows, pruns, ptext) = (smoke["kernels"],
+                                                 smoke["plain"])
+    check_gate(rows, runs, text, smoke_flags, GATE_SMOKE_PEOPLE, "smoke")
+    if PG.failed(prows) or any(any(r["launches"].values())
+                               for r in pruns.values()):
+        raise AssertionError(f"smoke, plain: {ptext}")
+    lines = []
+    for (name, got, *_), (_, want, *_) in zip(rows, prows):
+        what = f"gate smoke {name}"
+        same = agree(got, want, runs[name]["detections"],
+                     pruns[name]["detections"], what)
+        if name == "yolact_r50_550":
+            require_same_detections(runs[name]["scored"],
+                                    pruns[name]["scored"], what)
+        else:
+            require_same_results(runs[name]["scored"], pruns[name]["scored"],
+                                 what)
+        out["counts"][f"gate_smoke_{name}"] = runs[name]["launches"]
+        lines.append(f"{gate_row(name, got, runs[name])}; plain {same}")
+    log(f"[19 gate] --smoke --device {device}: six rows measured, none "
+        "FAILED (exit status 0); kernels vs plain (TF32 off, deterministic "
+        "cuDNN), each family's scored detections (loadRes's results; "
+        "YOLACT's postprocess_image) equal bit for bit, the rows "
+        "degenerate (random weights saturate the heads: 0 AP and capped "
+        "counts but for Pose2Seg's): " + "; ".join(lines))
+
+    # (b) real mode at the published sizes on synthetic checkpoints
+    rng = np.random.default_rng(SEED + 31)
+    kp_case = (textured_image(rng, 480, 640),
+               template_people(rng, 6, 480, 640))
+    t_w = time.perf_counter()
+    how = write_gate_weights(tmp / "weights", data, kp_case, dev)
+    t_w = time.perf_counter() - t_w
+    kp_images, kp_ann = write_keypoint_dataset(tmp / "keypoints", SEED + 32)
+    flags = {"--weights_dir": str(tmp / "weights"),
+             "--coco_images": data["img_dir"], "--coco_ann": data["ann"],
+             "--ochuman_images": kp_images, "--ochuman_val": kp_ann,
+             "--max_images": str(GATE_MAX_IMAGES), "--device": device}
+    argv = [a for kv in flags.items() for a in kv]
+    with gate_runs() as runs, quiet() as buf, \
+            recording_nms() as k1, \
+            recording_calls(sampling, "multilevel_roi_align") as k2, \
+            recording_calls(dcn_kernel, "sample_points") as k4:
+        t_real = time.perf_counter()
+        rows = PG.main(argv)
+        t_real = time.perf_counter() - t_real
+    text = buf.getvalue()
+    check_gate(rows, runs, text, flags, P2S.Pose2SegConfig().max_people,
+               "real mode")
+    with torch.inference_mode():
+        same = require_same_calls(k1, k2, k4)
+    del k1, k2, k4
+    verdict = [ln for ln in text.splitlines()
+               if ln.startswith("worst |delta|")]
+    if len(verdict) != 1 or not any(f"-> {v} (" in verdict[0]
+                                    for v in ("PASS", "ATTENTION")):
+        raise AssertionError(f"real mode: verdict {verdict}\n{text}")
+    lines, timing = [], []
+    for name, got, *_ in rows:
+        r = runs[name]
+        n = len(gate_images(flags, name)[1])
+        out["counts"][f"gate_{name}"] = r["launches"]
+        out["times"][f"gate {name} s"] = r["s"]
+        out["times"][f"gate {name} evaluation img/s"] = n / r["eval_s"]
+        lines.append(gate_row(name, got, r)
+                     + (f" ({how[name]})" if name in how else ""))
+        timing.append(f"{name} {r['s']:.2f} s, its evaluation "
+                      f"{r['eval_s']:.2f} s = {n / r['eval_s']:.2f} img/s "
+                      f"({n} images)")
+    log(f"[19 gate] real mode --device {device} at the published sizes "
+        "(YOLACT 550, the detectron family 800/1333, YOLOv3 608, Pose2Seg "
+        f"512), --max_images {GATE_MAX_IMAGES}, over phase 13's COCO dataset "
+        "and an 8-image keypoint dataset as --ochuman_*, on six synthetic "
+        f"upstream-format checkpoints (written in {t_w:.1f} s): every row "
+        "measured, no FAILED row, launches as predicted, " + same + "; "
+        + "; ".join(lines) + f"; verdict line: {verdict[0]}")
+    log(f"[19 timing] the gate's real mode, host clock, per family (its "
+        "runner: the predictor built from its checkpoint on the card, the "
+        "evaluation with COCOeval or YOLACT's mAP): " + "; ".join(timing)
+        + f"; the whole run {t_real:.2f} s [{card}]")
+
+    # (c) a missing weight file: its row SKIP, the others measured, exit 0
+    missing = tmp / "weights" / "yolov3.weights"
+    missing.rename(tmp / "yolov3.weights")
+    only = "mask_rcnn_r50_fpn,yolov3_608,pose2seg"
+    rc, text = gate_process(argv + ["--only", only])
+    skip = table_row(text, "yolov3_608")
+    if (rc != 0 or skip != [f"{'yolov3_608':<22}{'-':<7}{'-':>9}{'-':>9}"
+                            f"{'-':>8}  SKIP (no weights)"]
+            or not all(measured_in(text, n)
+                       for n in ("mask_rcnn_r50_fpn", "pose2seg"))
+            or "FAIL" in text):
+        raise AssertionError(f"a missing yolov3.weights: exit {rc}\n{text}")
+    # a family that raises: its row FAILED, the verdict FAIL, exit 1
+    rc2, text2 = gate_process(["--smoke", "--device", device, "--only",
+                               "yolov3_608,pose2seg"], "injected fault")
+    if (rc2 != 1 or not any("FAILED: injected fault" in ln
+                            for ln in table_row(text2, "yolov3_608"))
+            or not measured_in(text2, "pose2seg")
+            or "FAIL: yolov3_608 raised" not in text2 or "PASS" in text2):
+        raise AssertionError(f"a raising family: exit {rc2}\n{text2}")
+    log(f"[19 gate] faults, each in a subprocess: without yolov3.weights "
+        f"(--only {only}) its row is SKIP (no weights), the other two "
+        f"measured, exit status {rc}; YOLOv3's evaluation made to raise "
+        f"(--smoke --only yolov3_608,pose2seg): its row 'FAILED: injected "
+        f"fault', Pose2Seg's measured, 'FAIL: yolov3_608 raised', no PASS, "
+        f"exit status {rc2}")
+    log(f"[19 total] phase 19 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -5764,7 +6129,8 @@ def main() -> int:
     times.update(time_yolact_train(dev, yolact_train, card))
     del pred, train, yolact, yolact_train
     torch.cuda.empty_cache()
-    # phase 13's dataset and checkpoints stay for phase 18's CLIs
+    # phase 13's dataset and checkpoints stay for phase 18's CLIs and
+    # phase 19's gate
     coco_tmp = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as family_tmp:
         tmp = coco_tmp.name
@@ -5797,8 +6163,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         multi = phase_multi_gpu(dev, Path(tmp), clis, card)
-    coco_tmp.cleanup()
     times.update(multi["times"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        gate = phase_gate(dev, data, Path(tmp), card)
+    coco_tmp.cleanup()
+    times.update(gate["times"])
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
@@ -5818,7 +6188,8 @@ def main() -> int:
         world-size-1 rank's steps (YOLACT++ two plain and two DDP, Mask
         R-CNN two plain and one DDP), and
         the two gloo ranks' YOLACT++ steps (two each) and Mask R-CNN steps
-        (one each) together."""
+        (one each) together; phase 19's: each family of the parity gate in
+        its smoke mode and in its real mode."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
@@ -5831,7 +6202,8 @@ def main() -> int:
                 **{path: n[name] for path, n in yolo["counts"].items()},
                 **{path: n[name] for path, n in vit["counts"].items()},
                 **{path: n[name] for path, n in bf16["counts"].items()},
-                **{path: n[name] for path, n in multi["counts"].items()}}
+                **{path: n[name] for path, n in multi["counts"].items()},
+                **{path: n[name] for path, n in gate["counts"].items()}}
 
     def pose2seg_shapes(prefix: str) -> dict:
         return {label: shape_entry(t)
@@ -5843,7 +6215,7 @@ def main() -> int:
                 for label, t in bf16["shapes"][name].items()}
 
     log(f"[total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 18 (the kernels' build included)")
+        "main to the end of phase 19 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [

@@ -52,6 +52,7 @@ SLICE_MODULES = [
     "tpuseg_torch.nn.vit", "tpuseg_torch.weights.vit_map",
     "tpuseg_torch.engine.classify", "tpuseg_torch.engine.vit_train",
     "tpuseg_torch.tools.vit_infer", "tpuseg_torch.tools.vit_train",
+    "tpuseg_torch.tools.parity_gate",
 ]
 ROOT = Path(__file__).resolve().parent.parent
 

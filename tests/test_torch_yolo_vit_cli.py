@@ -1,5 +1,6 @@
 """The YOLOv3 and ViT entry points of tpuseg_torch on the CPU: each of the
-five CLIs takes its JAX twin's flags plus ``--device``; the predictors,
+five CLIs (and the parity gate) takes its JAX twin's flags plus
+``--device``; the predictors,
 trainers and CLIs default to the card; yolo_detect, yolo_eval and
 vit_infer run through ``main(argv)`` on small images; yolo_train's batch
 equals tpuseg's recipe; yolo_train and vit_train take 2 steps each and
@@ -31,7 +32,8 @@ from tpuseg_torch.tools import (vit_infer, vit_train, yolo_detect, yolo_eval,
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
-CLIS = ("yolo_detect", "yolo_eval", "yolo_train", "vit_infer", "vit_train")
+CLIS = ("yolo_detect", "yolo_eval", "yolo_train", "vit_infer", "vit_train",
+        "parity_gate")
 SMALL_VIT = dict(image_size=32, patch_size=8, hidden_size=64, num_layers=2,
                  num_heads=4, mlp_dim=128, num_classes=10)
 
