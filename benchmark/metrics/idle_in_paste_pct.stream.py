@@ -1,0 +1,9 @@
+"""Share of the traced window's device-idle time that lies under the
+program's ``predictor.paste`` ranges (``postprocess_image`` on the host):
+the idle-time intervals intersected with the union of those ranges, over
+all idle time."""
+from benchmark.common import program
+
+
+def read(ctx):
+    return program.idle_pct_under(ctx, "predictor.paste")

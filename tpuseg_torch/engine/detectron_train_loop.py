@@ -31,6 +31,7 @@ from tpuseg_torch.engine.trainer import (call_in_dtype, make_optimizer,
                                          save_checkpoint, set_lr,
                                          warmup_multistep_lr)
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.utils import timer
 from tpuseg_torch.utils.logging import MovingAverage
 from tpuseg_torch.weights import from_jax
 from tpuseg_torch.weights.npz_io import save_params_npz
@@ -74,28 +75,37 @@ def build_train_example(dataset, iid, min_size=800, max_size=1333,
     targets: ``boxes`` [max_gt, 4], ``classes`` [max_gt] (-1 pads and
     crowd), ``mask_crops`` [max_gt, crop, crop] 0/1). Horizontal flip with
     probability ``flip_prob`` (INPUT.FLIP_PROB_TRAIN) drawn from ``rng``."""
-    img = dataset.load_image(iid)  # RGB
-    gt = dataset.load_target(iid)
-    if rng is not None and rng.random() < flip_prob:
-        w = img.shape[1]
-        img = np.ascontiguousarray(img[:, ::-1])
-        b = gt["boxes"].copy()
-        # BoxList.transpose: flipped xmin = width - xmax - 1 (TO_REMOVE=1)
-        b[:, [0, 2]] = w - gt["boxes"][:, [2, 0]] - 1
-        gt["boxes"] = b
-        gt["masks"] = np.ascontiguousarray(gt["masks"][:, :, ::-1])
-    canvas, (th, tw), (sy, sx) = preprocess_image_bgr(
-        img[:, :, ::-1], min_size, max_size)
+    with timer.span("loop.decode"):
+        img = dataset.load_image(iid)  # RGB
+    with timer.span("loop.gt_masks"):
+        gt = dataset.load_target(iid)
+    with timer.span("loop.resize"):
+        if rng is not None and rng.random() < flip_prob:
+            w = img.shape[1]
+            img = np.ascontiguousarray(img[:, ::-1])
+            b = gt["boxes"].copy()
+            # BoxList.transpose: flipped xmin = width - xmax - 1 (TO_REMOVE=1)
+            b[:, [0, 2]] = w - gt["boxes"][:, [2, 0]] - 1
+            gt["boxes"] = b
+            gt["masks"] = np.ascontiguousarray(gt["masks"][:, :, ::-1])
+        canvas, (th, tw), (sy, sx) = preprocess_image_bgr(
+            img[:, :, ::-1], min_size, max_size)
     g = min(len(gt["boxes"]), max_gt)
     boxes = np.zeros((max_gt, 4), np.float32)
     classes = np.full((max_gt,), -1, np.int32)
     crops = np.zeros((max_gt, crop, crop), np.float32)
-    for i in range(g):
-        if gt["iscrowd"][i]:
-            continue
-        boxes[i] = gt["boxes"][i] * np.asarray([sx, sy, sx, sy], np.float32)
-        classes[i] = gt["classes"][i]
-        crops[i] = crop_mask(gt["masks"][i], gt["boxes"][i], crop) > 0.5
+    made = 0
+    with timer.span("loop.mask_crops"):
+        for i in range(g):
+            if gt["iscrowd"][i]:
+                continue
+            boxes[i] = gt["boxes"][i] * np.asarray([sx, sy, sx, sy],
+                                                   np.float32)
+            classes[i] = gt["classes"][i]
+            crops[i] = crop_mask(gt["masks"][i], gt["boxes"][i], crop) > 0.5
+            made += 1
+    timer.count("loop.images")
+    timer.count("loop.gt_objects", made)
     return canvas, (th, tw), {
         "boxes": boxes, "classes": classes, "mask_crops": crops}
 
@@ -117,26 +127,32 @@ def train_step(model, optimizer, lr: float, images: torch.Tensor,
     ``compute_dtype`` (bf16) is the JAX loop's mixed precision: the
     forward and backward on a cast of the model and the images, the f32
     masters in the optimizer; the losses take f32 logits."""
-    set_lr(optimizer, lr)
-    if compute_dtype is not None:
-        images = images.to(compute_dtype)
-    losses = call_in_dtype(model, compute_dtype, train_losses, images,
-                           image_hw, targets, generator)
-    optimizer.zero_grad(set_to_none=True)
-    losses["total"].backward()
-    optimizer.step()
-    return {k: v.detach() for k, v in losses.items()}
+    with timer.span("loop.step"):
+        set_lr(optimizer, lr)
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        losses = call_in_dtype(model, compute_dtype, train_losses, images,
+                               image_hw, targets, generator)
+        optimizer.zero_grad(set_to_none=True)
+        losses["total"].backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
 
 
 def batch_to_device(examples, dev) -> tuple:
     """build_train_example outputs -> (images [B, 3, Hc, Wc], image_hw
     [B, 2], targets) on ``dev``."""
-    imgs, hws, tgts = zip(*examples)
-    images = torch.from_numpy(np.stack(imgs).transpose(0, 3, 1, 2).copy())
-    targets = {k: torch.from_numpy(np.stack([t[k] for t in tgts])).to(dev)
-               for k in tgts[0]}
-    return (images.to(dev), torch.tensor(hws, dtype=torch.int64, device=dev),
-            targets)
+    with timer.span("loop.upload"):
+        imgs, hws, tgts = zip(*examples)
+        images = torch.from_numpy(np.stack(imgs).transpose(0, 3, 1, 2).copy())
+        targets = {k: torch.from_numpy(np.stack([t[k] for t in tgts])).to(dev)
+                   for k in tgts[0]}
+        images = images.to(dev)
+        hw = torch.tensor(hws, dtype=torch.int64, device=dev)
+    timer.count("loop.batches")
+    timer.count("loop.upload_bytes", images.nbytes + hw.nbytes
+                + sum(t.nbytes for t in targets.values()))
+    return images, hw, targets
 
 
 def jax_tree(model) -> dict:
@@ -188,10 +204,13 @@ def do_train(dataset, cfg=None, model=None,
     if not ids:
         raise ValueError("dataset has no images")
     avgs: dict[str, MovingAverage] = {}
-    t_avg = MovingAverage(50)
+    # maskrcnn-benchmark's MetricLogger: an iteration is timed from the end
+    # of the last one, so its batch build counts, and "data" is that part
+    t_avg, t_data = MovingAverage(50), MovingAverage(50)
     history = []
     it = 0
     buckets = {"landscape": [], "portrait": []}
+    end = time.perf_counter()
     while it < max_iter and (max_steps is None or it < max_steps):
         rng.shuffle(ids)
         for iid in ids:
@@ -202,29 +221,35 @@ def do_train(dataset, cfg=None, model=None,
             if len(buckets[orient]) < ims_per_batch:
                 continue
             chunk, buckets[orient] = buckets[orient], []
-            images, hw, targets = batch_to_device(
-                [build_train_example(dataset, i, min_size, max_size, rng=rng)
-                 for i in chunk], dev)
-            t0 = time.perf_counter()
-            losses = train_step(model, opt, lr_fn(it), images, hw, targets,
-                                gen, compute_dtype)
-            losses = {k: float(v) for k, v in losses.items()}
-            t_avg.add(time.perf_counter() - t0)
-            history.append(losses)
-            for k, v in losses.items():
-                avgs.setdefault(k, MovingAverage(50)).add(v)
-            it += 1
-            if it % log_every == 0:
-                terms = "  ".join(f"{k}: {a.get_avg():.4f}"
-                                  for k, a in avgs.items())
-                eta = (max_iter - it) * t_avg.get_avg() / 3600
-                print(f"iter: {it}  {terms}  time: {t_avg.get_avg():.3f}  "
-                      f"eta: {eta:.1f}h", flush=True)
-            if it % checkpoint_period == 0:
-                path = f"{output_dir}/model_{it:07d}"
-                save_checkpoint(path + ".pth", model, it)
-                save_params_npz(path + ".npz", jax_tree(model))
-                print(f"saved {path}.pth and .npz", flush=True)
+            with timer.span("loop.iter"):
+                with timer.span("loop.batch"):
+                    images, hw, targets = batch_to_device(
+                        [build_train_example(dataset, i, min_size, max_size,
+                                             rng=rng) for i in chunk], dev)
+                t_data.add(time.perf_counter() - end)
+                losses = train_step(model, opt, lr_fn(it), images, hw,
+                                    targets, gen, compute_dtype)
+                with timer.span("loop.readback"):
+                    losses = {k: float(v) for k, v in losses.items()}
+                now = time.perf_counter()
+                t_avg.add(now - end)
+                end = now
+                history.append(losses)
+                for k, v in losses.items():
+                    avgs.setdefault(k, MovingAverage(50)).add(v)
+                it += 1
+                if it % log_every == 0:
+                    terms = "  ".join(f"{k}: {a.get_avg():.4f}"
+                                      for k, a in avgs.items())
+                    eta = (max_iter - it) * t_avg.get_avg() / 3600
+                    print(f"iter: {it}  {terms}  time: {t_avg.get_avg():.3f}"
+                          f"  data: {t_data.get_avg():.3f}  eta: {eta:.1f}h",
+                          flush=True)
+                if it % checkpoint_period == 0:
+                    path = f"{output_dir}/model_{it:07d}"
+                    save_checkpoint(path + ".pth", model, it)
+                    save_params_npz(path + ".npz", jax_tree(model))
+                    print(f"saved {path}.pth and .npz", flush=True)
             if it >= max_iter or (max_steps is not None and it >= max_steps):
                 break
     return model, it, history

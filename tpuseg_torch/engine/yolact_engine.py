@@ -26,6 +26,7 @@ from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.ops.preprocess import yolact_preprocess
 from tpuseg_torch.parallel.inference import ShardedInference
 from tpuseg_torch.parallel.mesh import resolve_devices
+from tpuseg_torch.utils import timer
 from tpuseg_torch.weights.yolact_map import load_yolact_weights
 
 
@@ -76,56 +77,67 @@ class YolactPredictor:
         classes, masks [B, K, Sp, Sp], valid (and mask_scores for
         YOLACT++). With several devices, a batch that does not divide
         across them runs padded with blank images."""
-        images = torch.as_tensor(images_u8)
-        if self._sharded is not None:
-            b = images.shape[0]
-            pad = (-b) % self.n_devices
-            if pad:
-                images = torch.cat([images, images.new_zeros(
-                    (pad,) + images.shape[1:])])
-            return {k: v[:b] for k, v in self._sharded(images).items()}
-        with torch.inference_mode():
-            return self._run(self.model, images.to(self.device))
+        with timer.span("predictor.run"):
+            images = torch.as_tensor(images_u8)
+            if self._sharded is not None:
+                b = images.shape[0]
+                pad = (-b) % self.n_devices
+                if pad:
+                    images = torch.cat([images, images.new_zeros(
+                        (pad,) + images.shape[1:])])
+                return {k: v[:b] for k, v in self._sharded(images).items()}
+            with torch.inference_mode():
+                return self._run(self.model, images.to(self.device))
 
     def postprocess_image(self, det_i: dict, h: int, w: int,
                           score_threshold: float = 0.0) -> dict:
         """Slot i of a batch (numpy) -> its detections in image coordinates:
         boxes [n, 4] (integer pixels), scores, classes, masks [n, h, w]
         uint8 (and mask_scores)."""
-        valid = det_i["valid"] & (det_i["scores"] > score_threshold)
-        masks = torch.from_numpy(np.ascontiguousarray(det_i["masks"][valid]))
-        if len(masks):
-            masks = F.interpolate(masks[:, None].float(), size=(h, w),
-                                  mode="bilinear", align_corners=False)[:, 0]
-        masks = (masks > 0.5).numpy().astype(np.uint8).reshape(-1, h, w)
-        px = det_i["boxes"][valid] * np.asarray([w, h, w, h], np.float32)
-        px[:, 0::2] = np.clip(px[:, 0::2], 0, w)
-        px[:, 1::2] = np.clip(px[:, 1::2], 0, h)
-        out = {"boxes": px.astype(np.int64).astype(np.float32),
-               "scores": det_i["scores"][valid],
-               "classes": det_i["classes"][valid], "masks": masks}
-        if "mask_scores" in det_i:
-            out["mask_scores"] = det_i["mask_scores"][valid]
-        return out
+        with timer.span("predictor.paste"):
+            valid = det_i["valid"] & (det_i["scores"] > score_threshold)
+            masks = torch.from_numpy(
+                np.ascontiguousarray(det_i["masks"][valid]))
+            if len(masks):
+                masks = F.interpolate(masks[:, None].float(), size=(h, w),
+                                      mode="bilinear",
+                                      align_corners=False)[:, 0]
+            masks = (masks > 0.5).numpy().astype(np.uint8).reshape(-1, h, w)
+            px = det_i["boxes"][valid] * np.asarray([w, h, w, h], np.float32)
+            px[:, 0::2] = np.clip(px[:, 0::2], 0, w)
+            px[:, 1::2] = np.clip(px[:, 1::2], 0, h)
+            out = {"boxes": px.astype(np.int64).astype(np.float32),
+                   "scores": det_i["scores"][valid],
+                   "classes": det_i["classes"][valid], "masks": masks}
+            if "mask_scores" in det_i:
+                out["mask_scores"] = det_i["mask_scores"][valid]
+            return out
 
     def predict_images(self, imgs_rgb: list,
                        score_threshold: float = 0.0) -> list:
         """uint8 RGB images of any sizes -> per image, the detections of
         :meth:`postprocess_image`. Images of one size run ``batch_size`` at
         a time."""
-        results = [None] * len(imgs_rgb)
-        by_size = {}
-        for i, img in enumerate(imgs_rgb):
-            by_size.setdefault(img.shape[:2], []).append(i)
-        for (h, w), ids in by_size.items():
-            for s in range(0, len(ids), self.batch_size):
-                chunk = ids[s:s + self.batch_size]
-                det = self.run_batch(np.stack([imgs_rgb[i] for i in chunk]))
-                det = {k: v.cpu().numpy() for k, v in det.items()}
-                for j, i in enumerate(chunk):
-                    results[i] = self.postprocess_image(
-                        {k: v[j] for k, v in det.items()}, h, w,
-                        score_threshold)
+        with timer.span("predictor.request"):
+            results = [None] * len(imgs_rgb)
+            by_size = {}
+            for i, img in enumerate(imgs_rgb):
+                by_size.setdefault(img.shape[:2], []).append(i)
+            for (h, w), ids in by_size.items():
+                for s in range(0, len(ids), self.batch_size):
+                    chunk = ids[s:s + self.batch_size]
+                    det = self.run_batch(np.stack([imgs_rgb[i]
+                                                   for i in chunk]))
+                    with timer.span("predictor.download"):
+                        det = {k: v.cpu().numpy() for k, v in det.items()}
+                    timer.count("predictor.download_bytes",
+                                sum(v.nbytes for v in det.values()))
+                    for j, i in enumerate(chunk):
+                        results[i] = self.postprocess_image(
+                            {k: v[j] for k, v in det.items()}, h, w,
+                            score_threshold)
+        timer.count("predictor.images", len(results))
+        timer.count("predictor.masks", sum(len(r["scores"]) for r in results))
         return results
 
 

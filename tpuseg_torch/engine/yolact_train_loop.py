@@ -224,17 +224,20 @@ def train(dataset, model_cfg: Y.YolactConfig, batch_size=8, max_iter=800000,
     t_avg = MovingAverage(100)
     epoch_size = max(len(dataset.image_ids) // batch_size, 1)
     history = []
+    # train.py times between iterations: the batch build counts
+    end = time.perf_counter()
     while it < max_iter and (max_steps is None or len(history) < max_steps):
         images, targets = next(batches)
         images, targets = batch_to_device(
             images[lo:hi], {k: v[lo:hi] for k, v in targets.items()}, dev)
         draws = torch.rand((batch_size, priors.shape[0]), generator=gen,
                            device=dev)[lo:hi]
-        t0 = time.perf_counter()
         losses = train_step(model, opt, lr_fn(it), images, targets, priors,
                             draws, loss_cfg, compute_dtype, bound)
         losses = {k: float(v) for k, v in losses.items()}
-        t_avg.add(time.perf_counter() - t0)
+        now = time.perf_counter()
+        t_avg.add(now - end)
+        end = now
         history.append(losses)
         for k, v in losses.items():
             avgs.setdefault(k, MovingAverage(100)).add(v)

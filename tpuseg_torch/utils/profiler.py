@@ -1,5 +1,7 @@
 """Profiling helpers (port of ``tpuseg/utils/profiler.py``): a device trace
-through ``torch.profiler`` and a steady-state throughput measure.
+through ``torch.profiler`` and a steady-state throughput measure. While a
+trace records, the program's spans (``utils/timer.py``) are ranges
+``tpuseg_torch/<stage>`` in it, over the device's rows.
 
 CUDA calls return before the device finishes, so :func:`measure_throughput`
 synchronises the devices of the tensors ``fn`` returns before it reads the
@@ -13,23 +15,28 @@ import time
 
 import torch
 
+from tpuseg_torch.utils import timer
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a trace of what runs inside: ``with trace(dir): run()``.
     The CPU always, CUDA when a card is there; written to
-    ``<log_dir>/trace.json`` (Perfetto / chrome://tracing) on exit."""
+    ``<log_dir>/trace.json`` (Perfetto / chrome://tracing) on exit, and the
+    table of the spans and counters that ran inside printed."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    timer.reset()
     with profile(activities=activities) as prof:
         yield prof
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"trace written to {path}")
+    timer.print_stats()
 
 
 def _devices(tree, out: set) -> set:
