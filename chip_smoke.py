@@ -50,6 +50,14 @@ Phases, one line each; any failure raises and exits non-zero:
      offsets), f32 and bf16 at B = 1 and 8: 13 DCN sampling launches per
      forward, sane detections, and kernels vs plain detection for
      detection, also with greedy NMS (use_fast_nms=False, one NMS launch);
+     then YOLACT's mask paste as the stream runs it: predict_images over
+     four 640x480 frames (one mask_paste launch a frame with masks, every
+     mask counted by predictor.masks_pasted_on_device, the uint8 masks
+     downloaded), the card's masks against the host paste of the same
+     detections, and the kernel against its plain version on the card at
+     the detector's layout and the stream's shape (n = 100, S = 138,
+     480x640; a pixel may differ only where the plain value lies within
+     1e-5 of 0.5), timed beside its bound;
   11. YOLACT++-550 R-50-FPN training through yolact_train_loop.train: 3
      iterations at B = 8 in f32 (TF32 convolutions, train-mode BatchNorm)
      over an in-memory synthetic dataset of 480-640 px images with 5-15
@@ -228,6 +236,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from tpuseg_torch import kernels
 from tpuseg_torch.configs.presets import (yolact_loss_config,
@@ -256,6 +265,7 @@ from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.eval import rle, yolact_map
 from tpuseg_torch.eval.coco import COCO
 from tpuseg_torch.eval.cocoeval import COCOeval
+from tpuseg_torch.kernels.mask_paste import paste_masks
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import maskrcnn_c4 as C4
 from tpuseg_torch.models import pose2seg as P2S
@@ -275,6 +285,7 @@ from tpuseg_torch.parallel import ddp as PDDP
 from tpuseg_torch.parallel.mesh import ThreadGroup
 from tpuseg_torch.parallel.sync_bn import convert_sync_bn
 from tpuseg_torch.tools import parity_gate as PG
+from tpuseg_torch.utils import timer
 from tpuseg_torch.weights import from_jax as FJ
 from tpuseg_torch.weights.npz_io import load_params_npz, save_params_npz
 from tpuseg_torch.weights.pose2seg_map import load_pose2seg_weights
@@ -290,7 +301,8 @@ STRIDES = (4, 8, 16, 32)
 CLS_SCORE_SCALE = 0.008
 TRAIN_STEPS = 3
 PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2,
-            "dcn_sample": 0, "dcn_sample_bwd": 0}
+            "dcn_sample": 0, "dcn_sample_bwd": 0,
+            "mask_paste": 0}
 # the backward's shapes at B = 2: the box pooler's 2 x 512 sampled rois at
 # P = 7 and the mask pooler's 2 x 128 at P = 14
 BWD_SHAPES = ((1024, 7), (256, 14))
@@ -337,11 +349,16 @@ DCN_OPS_PER_VALUE = 12  # per sample and channel: 4 corner weights, 4 mul,
 DCN_BWD_OPS_PER_VALUE = 36  # per sample and channel: g * m, 4 corner
 # weights times it and 4 adds into d feats; 3 x (4 mul + 3 add) for the
 # d sy, d sx and d m terms; 3 mul + 3 add into their sums
+# phase 10's mask paste: the stream's frames, one forward each
+STREAM_HW = (480, 640)
+MASK_PASTE_FRAMES = 4
+MASK_PASTE_OPS_PER_PIXEL = 3
 YOLACT_TRAIN_STEPS = 3
 YOLACT_BATCH = 8
 YOLACT_PER_STEP = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
                    "dcn_sample": sum(DCN_PER_FORWARD),
-                   "dcn_sample_bwd": sum(DCN_PER_FORWARD)}
+                   "dcn_sample_bwd": sum(DCN_PER_FORWARD),
+                   "mask_paste": 0}
 
 
 def log(msg: str) -> None:
@@ -620,7 +637,8 @@ def phase_roi_align_bwd(dev) -> dict:
     out.backward(grad)
     counts = kernels.launch_counts()
     if counts != {"nms": 0, "roi_align": 1, "roi_align_bwd": 1,
-                  "dcn_sample": 0, "dcn_sample_bwd": 0}:
+                  "dcn_sample": 0, "dcn_sample_bwd": 0,
+                  "mask_paste": 0}:
         raise AssertionError(f"pooler forward + backward launched {counts}")
     err = bwd_error([f.grad for f in feats],
                     run_bwd(case, BWD_SHAPES[0][1], torch.float32),
@@ -918,7 +936,8 @@ def phase_slice(dev, tmp: Path) -> tuple:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     per_forward = {"nms": 6, "roi_align": 2, "roi_align_bwd": 0,
-                   "dcn_sample": 0, "dcn_sample_bwd": 0}
+                   "dcn_sample": 0, "dcn_sample_bwd": 0,
+                   "mask_paste": 0}
     if after_l != per_forward or counts != {k: 2 * v for k, v in per_forward.items()}:
         raise AssertionError(f"launches: {after_l} after the landscape batch, "
                              f"{counts} after the portrait image; want "
@@ -1318,7 +1337,8 @@ def phase_yolact(dev) -> dict:
     preds = {dt: YolactPredictor(cfg, state_dict=sd, dtype=dt, device=dev)
              for dt in (torch.float32, torch.bfloat16)}
     per_forward = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
-                   "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0}
+                   "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0,
+                   "mask_paste": 0}
     lines = []
     for dt, pred in preds.items():
         for b in (1, 8):
@@ -1365,6 +1385,122 @@ def phase_yolact(dev) -> dict:
         f"NMS: detections {got['valid'].sum(1).tolist()} equal, max err "
         + ", ".join(f"{n} {e:.3g}" for n, e in err_greedy.items()))
     return {"preds": preds, "images": images, "counts": per_forward}
+
+
+def time_mask_paste(masks, kept: np.ndarray, h: int, w: int) -> tuple:
+    """The paste of ``masks[kept]`` to h x w: (kernel ms through the
+    wrapper, plain ms, bound ms, what bounds it, F.interpolate + gt on the
+    gathered masks, the kernel's launch alone)."""
+    dev, (n, s) = masks.device, (len(kept), masks.shape[1])
+    k, p = time_pair(lambda: paste_masks(masks, kept, h, w))
+    gathered = masks[torch.from_numpy(kept).to(dev)].contiguous()
+    lib = cuda_time_ms(lambda: F.interpolate(
+        gathered[:, None], size=(h, w), mode="bilinear",
+        align_corners=False)[:, 0] > 0.5)
+    slots = torch.from_numpy(kept).to(dev)
+    out = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+    alone = cuda_time_ms(lambda: kernels.library().tpuseg_mask_paste_f32(
+        masks.data_ptr(), *masks.stride(), slots.data_ptr(), n, s, h, w,
+        out.data_ptr(), kernels.stream_ptr(dev)))
+    # a byte written a pixel and the kept masks read once; a pixel's two
+    # row samples weighed (FMA, multiply) and compared
+    return (k, p) + bound(n * h * w + n * s * s * 4,
+                          MASK_PASTE_OPS_PER_PIXEL * n * h * w) + (lib, alone)
+
+
+def paste_flips(got, masks, kept: np.ndarray, h: int, w: int,
+                want=None) -> tuple:
+    """Pixels where ``got`` (uint8 [n, h, w]) differs from the plain paste
+    of ``masks[kept]`` (on the masks' device, or ``want``): (count, the
+    largest distance of their plain value from 0.5); a flip more than
+    1e-5 from it raises."""
+    idx = torch.from_numpy(kept).to(masks.device)
+    values = F.interpolate(masks[idx][:, None].float(), size=(h, w),
+                           mode="bilinear", align_corners=False)[:, 0]
+    if want is None:
+        want = (values > 0.5).to(torch.uint8)
+    flips = torch.as_tensor(got).to(masks.device) != torch.as_tensor(
+        want).to(masks.device)
+    dist = float((values[flips] - 0.5).abs().max()) if bool(
+        flips.any()) else 0.0
+    if dist >= 1e-5:
+        raise AssertionError(f"mask paste: {int(flips.sum())} pixels "
+                             f"differ, one {dist:.3g} from 0.5")
+    return int(flips.sum()), dist
+
+
+def phase_mask_paste(dev, yolact: dict, card: str) -> dict:
+    """YOLACT's mask paste on the card as the stream runs it: phase 10's
+    f32 YOLACT++ predictor's predict_images over 640x480 frames, one
+    forward each (its counters and launches), its masks against the host
+    paste of the same detections, and the kernel against its plain
+    version at the detector's layout and the stream's shape (n = 100 of
+    S = 138 to 480x640), with its time beside its bound."""
+    pred = yolact["preds"][torch.float32]
+    h, w = STREAM_HW
+    rng = np.random.default_rng(SEED + 10)
+    frames = [textured_image(rng, h, w) for _ in range(MASK_PASTE_FRAMES)]
+    pred.predict_images(frames[:1])  # the warm-up (cuDNN's choices)
+    torch.cuda.synchronize()
+    timer.reset()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = pred.predict_images(frames)
+        torch.cuda.synchronize()
+    counts, c = kernels.launch_counts(), timer.counters()
+    timer.reset()
+    n_masks = [len(r["scores"]) for r in res]
+    want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+            "dcn_sample": sum(DCN_PER_FORWARD) * len(frames),
+            "dcn_sample_bwd": 0, "mask_paste": sum(n > 0 for n in n_masks)}
+    if (counts != want or not want["mask_paste"]
+            or c.get("predictor.masks_pasted_on_device")
+            != c["predictor.masks"] or c["predictor.masks"] != sum(n_masks)
+            or any(r["masks"].shape != (n, h, w)
+                   or r["masks"].dtype != np.uint8
+                   for r, n in zip(res, n_masks))):
+        raise AssertionError(f"predict_images of {len(frames)} frames: "
+                             f"{n_masks} masks, launched {counts} (want "
+                             f"{want}), counters {dict(c)}")
+    # the same detections pasted on the card and on the host
+    det = pred.run_batch(frames[0][None])
+    on_card = {k: v[0] if k == "masks" else v[0].cpu().numpy()
+               for k, v in det.items()}
+    on_host = {k: v[0].cpu().numpy() for k, v in det.items()}
+    got = pred.postprocess_image(on_card, h, w)
+    host = pred.postprocess_image(on_host, h, w)
+    for k in ("boxes", "scores", "classes", "mask_scores"):
+        if not np.array_equal(got[k], host[k]):
+            raise AssertionError(f"postprocess_image on the card: {k} "
+                                 "differ from the host's")
+    kept = np.flatnonzero(on_host["valid"] & (on_host["scores"] > 0))
+    vs_host = paste_flips(got["masks"], det["masks"][0].cpu(), kept, h, w,
+                          host["masks"])
+    # the kernel against its plain version on the card, every slot of the
+    # detector's [K, S, S] view of an [S, S, K] array: the stream's shape
+    masks = det["masks"][0]
+    every = np.arange(masks.shape[0])
+    k_out = paste_masks(masks, every, h, w)
+    with kernels.force_plain():
+        p_out = paste_masks(masks, every, h, w)
+    vs_plain = paste_flips(k_out, masks, every, h, w, p_out)
+    t = time_mask_paste(masks, every, h, w)
+    label = (f"mask_paste float32 n={len(every)} S={masks.shape[1]} "
+             f"{h}x{w}")
+    log(f"[10 paste] predict_images of {len(frames)} {w}x{h} frames, "
+        f"{n_masks} masks: {counts['mask_paste']} mask_paste launches, "
+        f"predictor.masks_pasted_on_device "
+        f"{c['predictor.masks_pasted_on_device']} of predictor.masks "
+        f"{c['predictor.masks']}, download "
+        f"{c['predictor.download_bytes']} bytes; the card's masks against "
+        f"the host's: {vs_host[0]} pixels differ (within {vs_host[1]:.3g} "
+        f"of 0.5); {label}, detector layout, against the plain paste on "
+        f"the card: {vs_plain[0]} pixels differ (within {vs_plain[1]:.3g} "
+        f"of 0.5); kernel {t[0]:.4f} ms (the launch alone {t[5]:.4f} ms), "
+        f"plain {t[1]:.4f} ms, bound {t[2]:.4g} ms by {t[3]}, "
+        f"F.interpolate + gt {t[4]:.4f} ms [{card}]")
+    return {"counts": want, "flips": {"host": vs_host, "plain": vs_plain},
+            "times": {label: t}, "label": label}
 
 
 # ---------------------------------------------------------------------------
@@ -2304,7 +2440,8 @@ def phase_coco_maskrcnn(dev, data: dict, tmp: Path, card: str) -> dict:
                                                        runs["plain"])
     forwards = len(ds) // COCO_BATCH
     want = {"nms": 6 * forwards, "roi_align": 2 * forwards,
-            "roi_align_bwd": 0, "dcn_sample": 0, "dcn_sample_bwd": 0}
+            "roi_align_bwd": 0, "dcn_sample": 0, "dcn_sample_bwd": 0,
+            "mask_paste": 0}
     if counts != want or any(pcounts.values()):
         raise AssertionError(f"evaluate_coco launched {counts} (plain "
                              f"{pcounts}); want {want}")
@@ -2386,7 +2523,8 @@ def phase_coco_yolact(dev, data: dict, tmp: Path, card: str) -> dict:
     forwards = -(-len(ds) // YOLACT_BATCH)
     want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "dcn_sample": sum(DCN_PER_FORWARD) * forwards,
-            "dcn_sample_bwd": 0}
+            "dcn_sample_bwd": 0,
+            "mask_paste": 0}
     if counts != want or any(pcounts.values()):
         raise AssertionError(f"evaluate_dataset launched {counts} (plain "
                              f"{pcounts}); want {want}")
@@ -2471,7 +2609,8 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
     stats, counts, wall, _, _ = run(test_net.main, argv)
     runs["test_net"] = (argv, stats)
     want = {"nms": 12, "roi_align": 4, "roi_align_bwd": 0, "dcn_sample": 0,
-            "dcn_sample_bwd": 0}
+            "dcn_sample_bwd": 0,
+            "mask_paste": 0}
     if counts != want or not all(np.isfinite(s).all() and s.shape == (12,)
                                  for s in stats.values()):
         raise AssertionError(f"test_net launched {counts}, want {want}; "
@@ -2520,7 +2659,8 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
     maps, counts, wall, _, _ = run(yolact_eval.main, argv)
     runs["yolact_eval"] = (argv, maps)
     want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
-            "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0}
+            "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0,
+            "mask_paste": 0}
     if counts != want or not np.isfinite(maps["mask"]["all"]):
         raise AssertionError(f"yolact_eval launched {counts}, want {want}; "
                              f"maps {maps}")
@@ -3084,7 +3224,8 @@ P2S_TRAIN_STEPS = 3
 # a training step: AffineAlign's and the ground-truth warp's samplings,
 # AffineAlign's gradient (d feats only: theta is data)
 P2S_PER_STEP = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
-                "dcn_sample": 2, "dcn_sample_bwd": 1}
+                "dcn_sample": 2, "dcn_sample_bwd": 1,
+                "mask_paste": 0}
 P2S_DATASET_IMAGES = 8  # alternately landscape and portrait
 P2S_DATASET_HW = (480, 640)
 # the backward with d feats only, per sample and channel: 4 corner weights
@@ -6121,11 +6262,13 @@ def main() -> int:
         pred, infer_counts = phase_slice(dev, Path(tmp))
         train = phase_train(dev, Path(tmp))
         yolact = phase_yolact(dev)
+        paste = phase_mask_paste(dev, yolact, card)
         yolact_train = phase_yolact_train(dev, Path(tmp))
     train_counts, yolact_counts = train["counts"], yolact["counts"]
     yolact_train_counts = yolact_train["counts"]
     times = phase_timing(dev, pred, train, card)
     times.update(time_yolact(dev, yolact, card))
+    times.update(paste["times"])
     times.update(time_yolact_train(dev, yolact_train, card))
     del pred, train, yolact, yolact_train
     torch.cuda.empty_cache()
@@ -6172,7 +6315,8 @@ def main() -> int:
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
-        steps, one YOLACT++ forward, three YOLACT++ training steps; phase
+        steps, one YOLACT++ forward, predict_images over phase 10's four
+        640x480 frames, three YOLACT++ training steps; phase
         13's: evaluate_coco over 16 images, evaluate_dataset over 16, and
         each CLI's run; phase 14's: one B = 2 forward and three training
         steps of C4, Faster R-CNN FPN and RetinaNet, and their CLIs'
@@ -6193,6 +6337,7 @@ def main() -> int:
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
+                "yolact_predict_images": paste["counts"][name],
                 "yolact_training": yolact_train_counts[name],
                 "coco_evaluate_coco": coco_mrcnn["counts"][name],
                 "coco_evaluate_dataset": coco_yolact["counts"][name],
@@ -6264,6 +6409,15 @@ def main() -> int:
                     **bf16_shapes("dcn_sample_bwd"),
                     **{k: shape_entry(t) for k, t in
                        multi["shapes"]["dcn_sample_bwd"].items()}}},
+        # at the stream's shape on the detector's layout; its error the
+        # pixels that differ from the plain paste on the card (each within
+        # 1e-5 of 0.5) and from the host's
+        {**kernel_entry("mask_paste", "tpuseg_torch/csrc/mask_paste.cu",
+                        "none: the JAX engine pastes on the host "
+                        "(tpuseg/engine/yolact_engine.py postprocess_image)",
+                        launches("mask_paste"), paste["flips"]["plain"][0],
+                        times[paste["label"]]),
+         "pixels_differing_from_host": paste["flips"]["host"][0]},
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

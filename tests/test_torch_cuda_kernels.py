@@ -300,7 +300,7 @@ def test_pooler_autograd_uses_both_kernels():
     (out * dp).sum().backward()
     assert kernels.launch_counts() == {"nms": 0, "roi_align": 1,
                                        "roi_align_bwd": 1, "dcn_sample": 0,
-                                       "dcn_sample_bwd": 0}
+                                       "dcn_sample_bwd": 0, "mask_paste": 0}
     want = sampling.multilevel_roi_align_backward(
         dp, boxes, bidx, levels, [f.shape for f in feats], torch.float32, 7, 2)
     _assert_bwd_close([f.grad for f in feats], want, torch.float32)
@@ -534,6 +534,60 @@ def test_gt_warp_kernel_at_the_pose2seg_shape():
     assert got.shape == (2, 16, 64, 64) and bool((got > 0).any())
 
 
+def _sigmoid_masks(rng, slots, s):
+    """Sigmoids of smooth logits, a twentieth of the pixels exactly 0.5 and
+    another within 1e-6 of it."""
+    logits = rng.normal(0, 4, (slots, s // 6 + 2, s // 6 + 2))
+    logits = torch.nn.functional.interpolate(
+        torch.from_numpy(logits)[:, None], size=(s, s), mode="bicubic",
+        align_corners=False)[:, 0].numpy()
+    v = 1 / (1 + np.exp(-logits))
+    pick = rng.uniform(size=v.shape)
+    v[pick < 0.05] = 0.5
+    near = (pick >= 0.05) & (pick < 0.1)
+    v[near] = 0.5 + rng.uniform(-1e-6, 1e-6, near.sum())
+    return torch.from_numpy(v.astype(np.float32))
+
+
+# 253 and 506 rows of 640: a strip is 12 rows, and S (12 - 1) / H is an
+# integer, where a strip's source rows are likeliest to round one more
+@pytest.mark.parametrize("hw", [(480, 640), (550, 550), (427, 640),
+                                (100, 90), (1, 1), (1333, 800), (253, 640),
+                                (506, 640)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("s", [138, 69])
+@pytest.mark.parametrize("n", [0, 1, 7, 100])
+def test_mask_paste_kernel_matches_plain(n, s, hw):
+    """The kept slots (an index that skips slots) of masks in the
+    detector's [K, S, S] view of an [S, S, K] array, against the plain
+    paste on the card and on the host: equal but where the plain value
+    lies within 1e-5 of 0.5; one launch for n >= 1, none for n = 0."""
+    from tpuseg_torch.kernels.mask_paste import paste_masks
+
+    dev = _device()
+    h, w = hw
+    rng = np.random.default_rng(1000 * n + s)
+    slots = n + n // 3 + 2
+    host = _sigmoid_masks(rng, slots, s)
+    masks = host.permute(1, 2, 0).contiguous().to(dev).permute(2, 0, 1)
+    index = np.sort(rng.choice(slots, n, replace=False))
+    before = kernels.launch_counts()["mask_paste"]
+    got = paste_masks(masks, index, h, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mask_paste"] == before + (n > 0)
+    assert got.dtype == torch.uint8 and got.shape == (n, h, w)
+    with kernels.force_plain():
+        on_card = paste_masks(masks, index, h, w)
+    got = got.cpu()
+    for want, src in ((on_card.cpu(), masks), (paste_masks(host, index, h, w),
+                                               host)):
+        values = torch.nn.functional.interpolate(
+            src[index][:, None], size=(h, w), mode="bilinear",
+            align_corners=False)[:, 0].cpu()
+        flips = got != want
+        assert ((values[flips] - 0.5).abs() < 1e-5).all()
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     dev = _device()
     from tpuseg_torch.kernels.nms import nms_keep
@@ -596,3 +650,18 @@ def test_kernel_wrappers_reject_bad_inputs():
                                cl, pts, pts, pts)
     with pytest.raises(ValueError):  # modulation of another shape
         sample_points_backward(g, cl, pts, pts, pts[:, :4].contiguous())
+
+
+def test_mask_paste_wrapper_rejects_bad_inputs():
+    dev = _device()
+    from tpuseg_torch.kernels.mask_paste import paste_masks
+
+    with pytest.raises(ValueError):  # f64 masks
+        paste_masks(torch.zeros(3, 8, 8, device=dev).double(), [0], 4, 4)
+    with pytest.raises(ValueError):  # masks not square
+        paste_masks(torch.zeros(3, 8, 9, device=dev), [0], 4, 4)
+    with pytest.raises(ValueError):  # an index past the slots
+        paste_masks(torch.zeros(3, 8, 8, device=dev), [3], 4, 4)
+    with pytest.raises(ValueError):  # the index on the card
+        paste_masks(torch.zeros(3, 8, 8, device=dev),
+                    torch.zeros(1, dtype=torch.int64, device=dev), 4, 4)

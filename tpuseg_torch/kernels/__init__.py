@@ -32,13 +32,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("nms.cu", "roi_align.cu", "roi_align_bwd.cu", "dcn_sample.cu",
-           "dcn_sample_bwd.cu")
+           "dcn_sample_bwd.cu", "mask_paste.cu")
 HEADERS = ("roi_align_common.cuh", "vec_io.cuh")  # hashed with the sources
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     # boxes, order, sorted valid, mask scratch, keep, B, N, thr,
@@ -66,10 +67,13 @@ _SIGNATURES = {
                                   _P, _P, _P, _P],
     "tpuseg_dcn_sample_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P, _P, _P, _P, _P],
+    # masks, their strides (slot, row, column; elements), index, n, S, H,
+    # W, out, stream
+    "tpuseg_mask_paste_f32": [_P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _P],
 }
 
 LAUNCHES = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "dcn_sample": 0,
-            "dcn_sample_bwd": 0}
+            "dcn_sample_bwd": 0, "mask_paste": 0}
 
 _state = {"lib": None, "force_plain": False}
 # the replicas of parallel/inference.py launch from one thread each
