@@ -212,7 +212,14 @@ Phases, one line each; any failure raises and exits non-zero:
      own inputs, each family's seconds and img/s on the host clock; (c) in
      subprocesses: without yolov3.weights its row is SKIP and the exit
      status 0; a family made to raise gives its FAILED row, the verdict
-     FAIL and exit status 1.
+     FAIL and exit status 1;
+  20. ViTDet-B Mask R-CNN (MaskRCNNPredictor(cfg=ViTDetConfig()), the
+     1024x1024 canvas, relative-position tables drawn non-zero, the class
+     layer scaled until each frame sends 50 candidates to the final NMS):
+     run_on_bgr_image over three 640x480 frames, 6 NMS and 2 RoIAlign
+     launches on each, sane detections and masks, every NMS and RoIAlign
+     call of the frames equal bit for bit to its plain version on its own
+     inputs.
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Phase 18 runs
 this file as its ranks' program: ``--rank JOB BACKEND DIR`` (a rank of
@@ -6188,6 +6195,114 @@ def phase_gate(dev, data: dict, tmp: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: ViTDet-B Mask R-CNN
+# ---------------------------------------------------------------------------
+
+VITDET_FRAMES = 3  # 640x480 frames, one request each
+# class-box candidates a frame into the final NMS (which keeps 100) that
+# the class layer's scale is raised to
+VITDET_MIN_CANDIDATES = 50
+VITDET_PER_FRAME = {"nms": 6, "roi_align": 2}
+
+
+def vitdet_weights(model) -> None:
+    """build_model's random weights, but the relative-position tables
+    N(0, 1/64) and the LayerNorm scales U(0.7, 1.3): upstream zero-inits
+    the tables, and a zero table or a unit scale would hide a mis-indexed
+    table or a missing norm."""
+    g = torch.Generator().manual_seed(SEED + 41)
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if ".rel_pos_" in name:
+                t.copy_(torch.randn(t.shape, generator=g) * t.shape[1] ** -0.5)
+            elif name.endswith(".weight") and t.ndim == 1:
+                t.copy_(0.7 + 0.6 * torch.rand(t.shape, generator=g))
+
+
+def calibrate_vitdet(pred: MaskRCNNPredictor, frames: list) -> str:
+    """The class layer's weights scaled by the least power of 2 at which
+    every frame sends VITDET_MIN_CANDIDATES class-box candidates past 0.05
+    to the final NMS (at N(0, 1/fan) each of the 81 scores is near 1/81)."""
+    canv, hws = [], []
+    for img in frames:
+        c, hw, _ = preprocess_image_bgr(img, pred.min_image_size,
+                                        pred.max_image_size, pred.rgb_norm)
+        canv.append(c)
+        hws.append(hw)
+    images = torch.from_numpy(np.stack(canv).transpose(0, 3, 1, 2).copy())
+    images = images.to(pred.device)
+    image_hw = torch.tensor(hws, dtype=torch.int64, device=pred.device)
+    model = pred.model
+    w = model.roi_heads.box.predictor.cls_score.weight
+    with torch.inference_mode():
+        base = w.clone()
+        feats = model.backbone(images)
+        for e in range(12):
+            w.copy_(base * 2 ** e)
+            n = M.forward_heads(model, feats, image_hw,
+                                tuple(images.shape[-2:]))[
+                "candidate_valid"].sum(1)
+            if int(n.min()) >= VITDET_MIN_CANDIDATES:
+                return (f"cls_score weights x {2 ** e}: {n.tolist()} "
+                        "class-box candidates a frame")
+    raise AssertionError(f"no cls_score scale gives {VITDET_MIN_CANDIDATES} "
+                         f"candidates a frame ({n.tolist()})")
+
+
+def phase_vitdet(dev, card: str) -> dict:
+    """Phase 20: MaskRCNNPredictor(cfg=ViTDetConfig()) at its published
+    sizes, one 640x480 frame a run_on_bgr_image: the launches of each
+    frame, sane detections and masks, every K1 and K2 call of the frames
+    equal bit for bit to its plain version on its own inputs; then a frame
+    on the host clock and the peak memory (information)."""
+    from tpuseg_torch.models.vitdet import ViTDetConfig
+
+    t0 = time.perf_counter()
+    pred = MaskRCNNPredictor(cfg=ViTDetConfig(), device=dev)
+    if pred.variant != "vitdet" or pred.min_image_size != 1024:
+        raise AssertionError(f"ViTDetConfig gave variant {pred.variant}, "
+                             f"test size {pred.min_image_size}")
+    vitdet_weights(pred.model)
+    rng = np.random.default_rng(SEED + 43)
+    frames = [textured_image(rng, *STREAM_HW) for _ in range(VITDET_FRAMES)]
+    calib = calibrate_vitdet(pred, frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, dets = [], []
+    with recording_nms() as nms_calls, \
+            recording_calls(sampling, "multilevel_roi_align") as roi_calls:
+        for img in frames:
+            kernels.reset_launch_counts()
+            res = pred.run_on_bgr_image(img)
+            torch.cuda.synchronize()
+            counts.append(kernels.launch_counts())
+            dets.append(check_result(res, *img.shape[:2]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = per(VITDET_PER_FRAME)
+    if any(c != want for c in counts):
+        raise AssertionError(f"ViTDet: launches {counts} per frame; want "
+                             f"{want}")
+    if min(dets) == 0:
+        raise AssertionError(f"ViTDet: no detections: {dets}")
+    log(f"[20 vitdet] MaskRCNNPredictor(cfg=ViTDetConfig()) "
+        f"{pred.min_image_size}x{pred.max_image_size} canvas, {calib}: "
+        f"launches {compact(want)} on each of {VITDET_FRAMES} "
+        f"{STREAM_HW[1]}x{STREAM_HW[0]} frames; detections {dets}; its NMS "
+        f"calls (kept/valid) equal the plain version bit for bit: "
+        f"{check_nms_calls(nms_calls)}; its RoIAlign calls equal bit for "
+        f"bit: {check_roi_calls(roi_calls)}")
+    ms = []
+    for img in frames:
+        t = time.perf_counter()
+        pred.run_on_bgr_image(img)
+        ms.append(1e3 * (time.perf_counter() - t))
+    log(f"[20 vitdet] a frame {np.median(ms):.2f} ms on the host clock "
+        f"(median of {len(ms)}); peak memory {peak / 1e9:.2f} GB; phase 20 "
+        f"in {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"counts": per(VITDET_PER_FRAME, VITDET_FRAMES)}
+
+
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(launches.values()),
@@ -6312,6 +6427,8 @@ def main() -> int:
         gate = phase_gate(dev, data, Path(tmp), card)
     coco_tmp.cleanup()
     times.update(gate["times"])
+    torch.cuda.empty_cache()
+    vitdet = phase_vitdet(dev, card)
 
     def launches(name):
         """Per path: the Mask R-CNN forward, three Mask R-CNN training
@@ -6333,7 +6450,8 @@ def main() -> int:
         R-CNN two plain and one DDP), and
         the two gloo ranks' YOLACT++ steps (two each) and Mask R-CNN steps
         (one each) together; phase 19's: each family of the parity gate in
-        its smoke mode and in its real mode."""
+        its smoke mode and in its real mode; phase 20's: ViTDet's
+        run_on_bgr_image over its frames."""
         return {"inference": infer_counts[name],
                 "training": train_counts[name],
                 "yolact_inference": yolact_counts[name],
@@ -6348,7 +6466,8 @@ def main() -> int:
                 **{path: n[name] for path, n in vit["counts"].items()},
                 **{path: n[name] for path, n in bf16["counts"].items()},
                 **{path: n[name] for path, n in multi["counts"].items()},
-                **{path: n[name] for path, n in gate["counts"].items()}}
+                **{path: n[name] for path, n in gate["counts"].items()},
+                "vitdet_run_on_bgr_image": vitdet["counts"][name]}
 
     def pose2seg_shapes(prefix: str) -> dict:
         return {label: shape_entry(t)
@@ -6360,7 +6479,7 @@ def main() -> int:
                 for label, t in bf16["shapes"][name].items()}
 
     log(f"[total] {time.perf_counter() - start:.1f} s from the start of "
-        "main to the end of phase 19 (the kernels' build included)")
+        "main to the end of phase 20 (the kernels' build included)")
     k3 = "roi_align_bwd float32 N=1024 P=7"
     k4c = f"dcn_sample_bwd float32 B={DCN_BATCH} 69x69x128 s1"
     log(json.dumps({"kernels": [

@@ -1,7 +1,8 @@
 """The program's spans and counters (``tpuseg_torch/utils/timer.py``): off
 and shared while no profiler records; under ``torch.profiler`` nested
-``tpuseg_torch/<stage>`` ranges and exact counters in ``do_train`` and
-``YolactPredictor.predict_images``; and the training loops' console lines
+``tpuseg_torch/<stage>`` ranges and exact counters in ``do_train``,
+``YolactPredictor.predict_images``, ``MaskRCNNPredictor.run_on_bgr_images``
+and ViTDet's attention blocks; and the training loops' console lines
 timing whole iterations, batch build included."""
 import dataclasses
 import functools
@@ -20,8 +21,10 @@ from tpuseg_torch.configs.presets import yolact_loss_config, yolact_model_config
 from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
 from tpuseg_torch.engine import detectron_train_loop as TD
 from tpuseg_torch.engine import yolact_train_loop as YTL
+from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
 from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.models import maskrcnn as M
+from tpuseg_torch.models import vitdet as VD
 from tpuseg_torch.models import yolact as Y
 from tpuseg_torch.nn.resnet import ResNet
 from tpuseg_torch.utils import profiler, timer
@@ -167,6 +170,43 @@ def test_predictor_spans_and_counters():
     timer.reset()
     assert pred.predict_images(imgs[:1])[0].keys() == res[0].keys()
     assert timer.counters() == {}
+
+
+def test_maskrcnn_predictor_and_vit_spans_and_counters():
+    """ViTDet at a small size (``tests/test_torch_vitdet.py``'s: 4 windowed
+    blocks over an 8 x 8 grid padded to 9 x 9, 2 global): one request of
+    two images holds one run, a paste and a download an image, and one
+    attention range a block and image batch; the counters are exact, and
+    nothing is counted without a profiler."""
+    from tests.test_torch_vitdet import CFG
+
+    pred = MaskRCNNPredictor(
+        model=VD.build_model(CFG, torch.Generator().manual_seed(5)),
+        device="cpu")
+    rng = np.random.default_rng(6)
+    imgs = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8)
+            for _ in range(2)]
+    timer.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = pred.run_on_bgr_images(imgs)
+    spans = ranges(prof)
+    assert len(spans["predictor.request"]) == 1
+    assert children(spans, "predictor.request", "predictor.run") == [1]
+    assert children(spans, "predictor.request", "predictor.paste") == [2]
+    assert children(spans, "predictor.request", "predictor.download") == [2]
+    assert children(spans, "predictor.run", "vit.window_attn") == [4]
+    assert children(spans, "predictor.run", "vit.global_attn") == [2]
+    assert timer.counters() == {
+        "predictor.images": 2,
+        "predictor.masks": sum(len(r["scores"]) for r in res),
+        "predictor.download_bytes": sum(v.nbytes for r in res
+                                        for v in r.values()),
+        "vit.window_tokens": 4 * 2 * 81, "vit.window_pad_tokens": 4 * 2 * 17}
+    timer.reset()
+    again = pred.run_on_bgr_images(imgs)
+    assert timer.counters() == {}
+    assert all(np.array_equal(a[k], b[k]) for a, b in zip(res, again)
+               for k in a)
 
 
 def test_trace_prints_the_span_table(tmp_path, capsys):

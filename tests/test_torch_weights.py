@@ -150,7 +150,7 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
 
 def test_entry_points_default_to_the_card():
     """Every variant of the predictor (the detectron family: "fpn", "c4",
-    "retinanet"), do_train for each model's config and the Pose2Seg
+    "retinanet", "vitdet"), do_train for each model's config and the Pose2Seg
     predictor run on the card unless the caller asks for the CPU."""
     from tpuseg_torch.engine.detectron_train_loop import do_train
     from tpuseg_torch.engine.maskrcnn_engine import (VARIANTS,
@@ -162,7 +162,7 @@ def test_entry_points_default_to_the_card():
     for fn in (MaskRCNNPredictor.__init__, COCODemo.__init__, do_train,
                train, Pose2SegPredictor.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert sorted(VARIANTS) == ["c4", "fpn", "retinanet"]
+    assert sorted(VARIANTS) == ["c4", "fpn", "retinanet", "vitdet"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MaskRCNNPredictor(M.MaskRCNNConfig(num_classes=NC))

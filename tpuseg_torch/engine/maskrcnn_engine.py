@@ -1,16 +1,23 @@
 """The detectron family's predictor and COCO evaluation (port of
 ``tpuseg/engine/maskrcnn_engine.py``; detectron.jittor COCODemo /
 tools/test_net.py parity): Mask R-CNN and Faster R-CNN R-50/101-FPN
-(``variant="fpn"``) and R-50/101-C4 (``"c4"``), and RetinaNet R-50-FPN
-(``"retinanet"``).
+(``variant="fpn"``) and R-50/101-C4 (``"c4"``), RetinaNet R-50-FPN
+(``"retinanet"``) and ViTDet-B Mask R-CNN (``"vitdet"``, inference).
 
 Host side: shortest-edge-800 resize (PIL bilinear, only when the size
 changes), BGR mean subtraction, placement on one of two static canvases
-(landscape 800x1344, portrait 1344x800). Device side: the model's forward
-on ``device``. Post: the masks (28x28 FPN, 14x14 C4) pasted into image
-coordinates with upstream Masker semantics; boxes-only models give no
-``masks``. :func:`evaluate_coco` scores a dataset with the port's COCOeval
-(``tpuseg_torch/eval``).
+(landscape 800x1344, portrait 1344x800); ViTDet's config asks for its own
+sizes (1024, on a 1024x1024 canvas) and RGB normalised by a mean and std.
+Device side: the model's forward on ``device``. Post: the masks (28x28
+FPN, 14x14 C4) pasted into image coordinates with upstream Masker
+semantics; boxes-only models give no ``masks``. :func:`evaluate_coco`
+scores a dataset with the port's COCOeval (``tpuseg_torch/eval``).
+
+``run_on_bgr_images`` marks the program's spans ``predictor.request``,
+``predictor.run`` (the forward's issue), ``predictor.paste`` and
+``predictor.download``, and counts ``predictor.images``,
+``predictor.masks`` and ``predictor.download_bytes``, under the YOLACT
+predictor's names (``utils/timer.py``).
 """
 from __future__ import annotations
 
@@ -21,14 +28,18 @@ import torch.nn.functional as F
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import maskrcnn_c4 as C4
 from tpuseg_torch.models import retinanet as RN
+from tpuseg_torch.models import vitdet as VD
 from tpuseg_torch.ops.preprocess import (DETECTRON_PIXEL_MEAN_BGR,
                                          detectron_target_size)
 from tpuseg_torch.parallel.inference import ShardedInference
 from tpuseg_torch.parallel.mesh import resolve_devices
+from tpuseg_torch.utils import timer
 
 # variant -> (model module, its config class); each module has
-# build_model, forward_inference and forward_train_losses
-VARIANTS = {"fpn": (M, M.MaskRCNNConfig), "c4": (C4, C4.MaskRCNNC4Config),
+# build_model and forward_inference, and all but vitdet forward_train_losses.
+# vitdet comes before fpn, since ViTDet's config extends the FPN one
+VARIANTS = {"vitdet": (VD, VD.ViTDetConfig), "fpn": (M, M.MaskRCNNConfig),
+            "c4": (C4, C4.MaskRCNNC4Config),
             "retinanet": (RN, RN.RetinaNetConfig)}
 
 
@@ -51,11 +62,14 @@ def build_model(cfg, generator: torch.Generator | None = None):
     return model_module(cfg).build_model(cfg, generator)
 
 
-def preprocess_image_bgr(img_bgr: np.ndarray, min_size=800, max_size=1333):
+def preprocess_image_bgr(img_bgr: np.ndarray, min_size=800, max_size=1333,
+                         rgb_norm: tuple | None = None):
     """-> (canvas float32 [Hc, Wc, 3], (th, tw) real size, (sy, sx) scales).
 
     The canvas is (min_size, ceil64(max_size)) or its transpose. PIL is
-    imported only when the image must be resized.
+    imported only when the image must be resized. The pixels are BGR less
+    maskrcnn-benchmark's mean, or with ``rgb_norm`` (mean, std), RGB as
+    (x - mean) / std; the padding is 0 either way.
     """
     h, w = img_bgr.shape[:2]
     th, tw = detectron_target_size(h, w, min_size, max_size)
@@ -71,8 +85,13 @@ def preprocess_image_bgr(img_bgr: np.ndarray, min_size=800, max_size=1333):
         pil = Image.fromarray(np.ascontiguousarray(img_bgr[:, :, ::-1]))
         resized = np.asarray(pil.resize((tw, th), Image.BILINEAR))[:, :, ::-1]
     canvas = np.zeros((*canvas_hw, 3), np.float32)
-    canvas[:th, :tw] = resized.astype(np.float32) - np.asarray(
-        DETECTRON_PIXEL_MEAN_BGR, np.float32)
+    if rgb_norm is None:
+        canvas[:th, :tw] = resized.astype(np.float32) - np.asarray(
+            DETECTRON_PIXEL_MEAN_BGR, np.float32)
+    else:
+        mean, std = (np.asarray(v, np.float32) for v in rgb_norm)
+        rgb = resized[:, :, ::-1].astype(np.float32)
+        canvas[:th, :tw] = (rgb - mean) / std
     return canvas, (th, tw), (th / h, tw / w)
 
 
@@ -127,13 +146,16 @@ class MaskRCNNPredictor:
     predictor. ``devices`` (``parallel/mesh.py::resolve_devices``): more
     than one shards each batch across a replica per device, the batch
     padded with blank canvases to a multiple of their number, as tpuseg's.
+    The image sizes default to the config's test sizes where it has them
+    (ViTDet's 1024), else 800 and 1333.
     """
 
     def __init__(self, cfg=None, weights: str | None = None, model=None,
-                 confidence_threshold: float = 0.5, min_image_size: int = 800,
-                 max_image_size: int = 1333, device="cuda", seed: int = 0,
-                 variant: str = "fpn", dtype: torch.dtype = torch.float32,
-                 devices=None):
+                 confidence_threshold: float = 0.5,
+                 min_image_size: int | None = None,
+                 max_image_size: int | None = None, device="cuda",
+                 seed: int = 0, variant: str = "fpn",
+                 dtype: torch.dtype = torch.float32, devices=None):
         if (torch.device(device).type == "cuda"
                 and not torch.cuda.is_available()):
             raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
@@ -155,8 +177,12 @@ class MaskRCNNPredictor:
         self.variant = variant_of(self.cfg)
         self._forward = model_module(self.cfg).forward_inference
         self.confidence_threshold = confidence_threshold
-        self.min_image_size = min_image_size
-        self.max_image_size = max_image_size
+        self.min_image_size = min_image_size or getattr(
+            self.cfg, "min_size_test", 800)
+        self.max_image_size = max_image_size or getattr(
+            self.cfg, "max_size_test", 1333)
+        self.rgb_norm = ((self.cfg.pixel_mean, self.cfg.pixel_std)
+                         if hasattr(self.cfg, "pixel_std") else None)
         self._sharded = (ShardedInference(self._run, self.model, device_list,
                                           n_batch_args=2)
                          if self.n_devices > 1 else None)
@@ -170,9 +196,10 @@ class MaskRCNNPredictor:
         """The model's ``forward_inference`` on canvases [B, 3, Hc, Wc]
         cast to the predictor's dtype -> padded detections, floating ones
         in f32 (with several devices: B must divide across them)."""
-        if self._sharded is not None:
-            return self._sharded(images, image_hw)
-        return self._run(self.model, images, image_hw)
+        with timer.span("predictor.run"):
+            if self._sharded is not None:
+                return self._sharded(images, image_hw)
+            return self._run(self.model, images, image_hw)
 
     def run_on_bgr_image(self, img_bgr: np.ndarray) -> dict:
         """Single image -> final detections in original-image coords."""
@@ -182,39 +209,50 @@ class MaskRCNNPredictor:
         """Batched inference; the images must share one canvas orientation.
         Returns, per image, numpy ``boxes``, ``scores``, ``classes`` (0-based)
         and, where the model has a mask head, ``masks`` [n, h, w] uint8."""
-        canvases, hws, scales = [], [], []
-        for img in imgs_bgr:
-            canvas, hw, scale = preprocess_image_bgr(
-                img, self.min_image_size, self.max_image_size)
-            canvases.append(canvas)
-            hws.append(hw)
-            scales.append(scale)
-        if len({c.shape for c in canvases}) != 1:
-            raise ValueError("a batch must share one canvas orientation")
-        pad = (-len(canvases)) % self.n_devices
-        # the shards must divide across the devices: blank canvases of
-        # size 1 x 1 fill the batch (1 image on 8 devices pads to 8)
-        canvases += [np.zeros_like(canvases[0])] * pad
-        hws += [(1, 1)] * pad
-        images = torch.from_numpy(
-            np.stack(canvases).transpose(0, 3, 1, 2).copy()).to(self.device)
-        image_hw = torch.tensor(hws, dtype=torch.int64, device=self.device)
-        with torch.inference_mode():
-            out = self.forward(images, image_hw)
-            results = []
-            for i, img in enumerate(imgs_bgr):
-                h, w = img.shape[:2]
-                valid = out["valid"][i]
-                sy, sx = scales[i]
-                boxes = out["boxes"][i][valid].clone()
-                boxes[:, 0::2] = (boxes[:, 0::2] / sx).clamp(0, w - 1)
-                boxes[:, 1::2] = (boxes[:, 1::2] / sy).clamp(0, h - 1)
-                res = {"boxes": boxes, "scores": out["scores"][i][valid],
-                       "classes": out["classes"][i][valid]}
-                if "masks" in out:  # none for Faster R-CNN and RetinaNet
-                    res["masks"] = paste_masks(out["masks"][i][valid], boxes,
-                                               h, w)
-                results.append({k: v.cpu().numpy() for k, v in res.items()})
+        with timer.span("predictor.request"):
+            canvases, hws, scales = [], [], []
+            for img in imgs_bgr:
+                canvas, hw, scale = preprocess_image_bgr(
+                    img, self.min_image_size, self.max_image_size,
+                    self.rgb_norm)
+                canvases.append(canvas)
+                hws.append(hw)
+                scales.append(scale)
+            if len({c.shape for c in canvases}) != 1:
+                raise ValueError("a batch must share one canvas orientation")
+            pad = (-len(canvases)) % self.n_devices
+            # the shards must divide across the devices: blank canvases of
+            # size 1 x 1 fill the batch (1 image on 8 devices pads to 8)
+            canvases += [np.zeros_like(canvases[0])] * pad
+            hws += [(1, 1)] * pad
+            images = torch.from_numpy(np.stack(canvases).transpose(
+                0, 3, 1, 2).copy()).to(self.device)
+            image_hw = torch.tensor(hws, dtype=torch.int64,
+                                    device=self.device)
+            with torch.inference_mode():
+                out = self.forward(images, image_hw)
+                results = []
+                for i, img in enumerate(imgs_bgr):
+                    h, w = img.shape[:2]
+                    with timer.span("predictor.paste"):
+                        valid = out["valid"][i]
+                        sy, sx = scales[i]
+                        boxes = out["boxes"][i][valid].clone()
+                        boxes[:, 0::2] = (boxes[:, 0::2] / sx).clamp(0, w - 1)
+                        boxes[:, 1::2] = (boxes[:, 1::2] / sy).clamp(0, h - 1)
+                        res = {"boxes": boxes,
+                               "scores": out["scores"][i][valid],
+                               "classes": out["classes"][i][valid]}
+                        if "masks" in out:  # none for Faster R-CNN, RetinaNet
+                            res["masks"] = paste_masks(
+                                out["masks"][i][valid], boxes, h, w)
+                    with timer.span("predictor.download"):
+                        res = {k: v.cpu().numpy() for k, v in res.items()}
+                    timer.count("predictor.download_bytes",
+                                sum(v.nbytes for v in res.values()))
+                    results.append(res)
+        timer.count("predictor.images", len(results))
+        timer.count("predictor.masks", sum(len(r["scores"]) for r in results))
         return results
 
     def select_top_predictions(self, preds: dict) -> dict:
