@@ -36,9 +36,11 @@ Phases, one line each; any failure raises and exits non-zero:
      and d m rtol 1e-5 / atol 1e-6 max|ref|);
   8. Mask R-CNN R-50-FPN inference through MaskRCNNPredictor on the card
      (full width, 81 classes, synthetic upstream-keyed weights from a numpy
-     seed): launch counts per forward, sane outputs, and the heads run on
-     one shared pyramid through the kernels and through the plain versions
-     must agree detection for detection;
+     seed): launch counts per forward (every CUDA MaskRCNNPredictor batch,
+     here and in the later phases, also launches the canvas kernel once),
+     sane outputs, and the heads run on one shared pyramid through the
+     kernels and through the plain versions must agree detection for
+     detection;
   9. Mask R-CNN R-50-FPN training through do_train: 3 iterations at B = 2
      on the 800x1344 canvas over an in-memory synthetic dataset, launch
      counts per step, finite losses, frozen stages still and the rest
@@ -216,10 +218,14 @@ Phases, one line each; any failure raises and exits non-zero:
   20. ViTDet-B Mask R-CNN (MaskRCNNPredictor(cfg=ViTDetConfig()), the
      1024x1024 canvas, relative-position tables drawn non-zero, the class
      layer scaled until each frame sends 50 candidates to the final NMS):
-     run_on_bgr_image over three 640x480 frames, 6 NMS and 2 RoIAlign
-     launches on each, sane detections and masks, every NMS and RoIAlign
-     call of the frames equal bit for bit to its plain version on its own
-     inputs.
+     run_on_bgr_image over three 640x480 frames, a canvas, 6 NMS and 2
+     RoIAlign launches on each, each frame's canvas from the kernel equal
+     bit for bit to preprocess_image_bgr's, sane detections and masks,
+     every NMS and RoIAlign call of the frames equal bit for bit to its
+     plain version on its own inputs; at a 640x480 frame onto ViTDet's 1024
+     canvas and onto the FPN's 800/1333 one, and a 1920x1080 frame onto the
+     FPN's, the kernel's and the plain version's canvases equal
+     preprocess_image_bgr's bit for bit, and the kernel timed.
 Then the smoke's seconds, one JSON line of kernel results, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Phase 18 runs
 this file as its ranks' program: ``--rank JOB BACKEND DIR`` (a rank of
@@ -228,6 +234,7 @@ this file as its ranks' program: ``--rank JOB BACKEND DIR`` (a rank of
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -272,6 +279,7 @@ from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.eval import rle, yolact_map
 from tpuseg_torch.eval.coco import COCO
 from tpuseg_torch.eval.cocoeval import COCOeval
+from tpuseg_torch.kernels import canvas as CV
 from tpuseg_torch.kernels.mask_paste import paste_masks
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import maskrcnn_c4 as C4
@@ -309,7 +317,7 @@ CLS_SCORE_SCALE = 0.008
 TRAIN_STEPS = 3
 PER_STEP = {"nms": 5, "roi_align": 2, "roi_align_bwd": 2,
             "dcn_sample": 0, "dcn_sample_bwd": 0,
-            "mask_paste": 0}
+            "mask_paste": 0, "canvas": 0}
 # the backward's shapes at B = 2: the box pooler's 2 x 512 sampled rois at
 # P = 7 and the mask pooler's 2 x 128 at P = 14
 BWD_SHAPES = ((1024, 7), (256, 14))
@@ -365,7 +373,7 @@ YOLACT_BATCH = 8
 YOLACT_PER_STEP = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
                    "dcn_sample": sum(DCN_PER_FORWARD),
                    "dcn_sample_bwd": sum(DCN_PER_FORWARD),
-                   "mask_paste": 0}
+                   "mask_paste": 0, "canvas": 0}
 
 
 def log(msg: str) -> None:
@@ -645,7 +653,7 @@ def phase_roi_align_bwd(dev) -> dict:
     counts = kernels.launch_counts()
     if counts != {"nms": 0, "roi_align": 1, "roi_align_bwd": 1,
                   "dcn_sample": 0, "dcn_sample_bwd": 0,
-                  "mask_paste": 0}:
+                  "mask_paste": 0, "canvas": 0}:
         raise AssertionError(f"pooler forward + backward launched {counts}")
     err = bwd_error([f.grad for f in feats],
                     run_bwd(case, BWD_SHAPES[0][1], torch.float32),
@@ -944,7 +952,7 @@ def phase_slice(dev, tmp: Path) -> tuple:
     counts = kernels.launch_counts()
     per_forward = {"nms": 6, "roi_align": 2, "roi_align_bwd": 0,
                    "dcn_sample": 0, "dcn_sample_bwd": 0,
-                   "mask_paste": 0}
+                   "mask_paste": 0, "canvas": 1}
     if after_l != per_forward or counts != {k: 2 * v for k, v in per_forward.items()}:
         raise AssertionError(f"launches: {after_l} after the landscape batch, "
                              f"{counts} after the portrait image; want "
@@ -954,7 +962,8 @@ def phase_slice(dev, tmp: Path) -> tuple:
     if min(ndet) == 0:
         raise AssertionError(f"no detections: {ndet}")
     log(f"[8 inference] predictor on 2 landscape 800x1200 + 1 portrait 1200x800 "
-        f"images: launches {counts} (6 NMS + 2 RoIAlign per forward), "
+        f"images: launches {counts} (a canvas, 6 NMS + 2 RoIAlign per "
+        f"forward), "
         f"detections {ndet}")
 
     # heads on one pyramid, kernels vs plain; TF32 off for the heads so the
@@ -1345,7 +1354,7 @@ def phase_yolact(dev) -> dict:
              for dt in (torch.float32, torch.bfloat16)}
     per_forward = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
                    "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0,
-                   "mask_paste": 0}
+                   "mask_paste": 0, "canvas": 0}
     lines = []
     for dt, pred in preds.items():
         for b in (1, 8):
@@ -1459,7 +1468,8 @@ def phase_mask_paste(dev, yolact: dict, card: str) -> dict:
     n_masks = [len(r["scores"]) for r in res]
     want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "dcn_sample": sum(DCN_PER_FORWARD) * len(frames),
-            "dcn_sample_bwd": 0, "mask_paste": sum(n > 0 for n in n_masks)}
+            "dcn_sample_bwd": 0, "mask_paste": sum(n > 0 for n in n_masks),
+            "canvas": 0}
     if (counts != want or not want["mask_paste"]
             or c.get("predictor.masks_pasted_on_device")
             != c["predictor.masks"] or c["predictor.masks"] != sum(n_masks)
@@ -2448,7 +2458,7 @@ def phase_coco_maskrcnn(dev, data: dict, tmp: Path, card: str) -> dict:
     forwards = len(ds) // COCO_BATCH
     want = {"nms": 6 * forwards, "roi_align": 2 * forwards,
             "roi_align_bwd": 0, "dcn_sample": 0, "dcn_sample_bwd": 0,
-            "mask_paste": 0}
+            "mask_paste": 0, "canvas": forwards}
     if counts != want or any(pcounts.values()):
         raise AssertionError(f"evaluate_coco launched {counts} (plain "
                              f"{pcounts}); want {want}")
@@ -2531,7 +2541,7 @@ def phase_coco_yolact(dev, data: dict, tmp: Path, card: str) -> dict:
     want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "dcn_sample": sum(DCN_PER_FORWARD) * forwards,
             "dcn_sample_bwd": 0,
-            "mask_paste": 0}
+            "mask_paste": 0, "canvas": 0}
     if counts != want or any(pcounts.values()):
         raise AssertionError(f"evaluate_dataset launched {counts} (plain "
                              f"{pcounts}); want {want}")
@@ -2617,7 +2627,7 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
     runs["test_net"] = (argv, stats)
     want = {"nms": 12, "roi_align": 4, "roi_align_bwd": 0, "dcn_sample": 0,
             "dcn_sample_bwd": 0,
-            "mask_paste": 0}
+            "mask_paste": 0, "canvas": 2}
     if counts != want or not all(np.isfinite(s).all() and s.shape == (12,)
                                  for s in stats.values()):
         raise AssertionError(f"test_net launched {counts}, want {want}; "
@@ -2667,7 +2677,7 @@ def phase_clis(dev, data: dict, mrcnn: dict, yolact: dict, tmp: Path,
     runs["yolact_eval"] = (argv, maps)
     want = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "dcn_sample": sum(DCN_PER_FORWARD), "dcn_sample_bwd": 0,
-            "mask_paste": 0}
+            "mask_paste": 0, "canvas": 0}
     if counts != want or not np.isfinite(maps["mask"]["all"]):
         raise AssertionError(f"yolact_eval launched {counts}, want {want}; "
                              f"maps {maps}")
@@ -2713,11 +2723,13 @@ def per(counts: dict, times: int = 1) -> dict:
 
 
 def expected_launches(cfg) -> tuple:
-    """The kernel launches of one forward and of one training step of a
-    detectron model, as its code makes them (the phases confirm them):
-    FPN 6 NMS (5 RPN levels, the final NMS) and a RoIAlign per pooler, its
-    backward in training; C4 its RPN's NMS and the final one (the pooler
-    has no kernel); RetinaNet its final NMS, nothing in training."""
+    """The kernel launches of one predictor batch (its canvas and forward)
+    and of one training step of a detectron model, as its code makes them
+    (the phases confirm them): the batch's canvas, then FPN 6 NMS (5 RPN
+    levels, the final NMS) and a RoIAlign per pooler, its backward in
+    training; C4 its RPN's NMS and the final one (the pooler has no
+    kernel); RetinaNet its final NMS, nothing in training (the training
+    batch's canvas is the host's)."""
     poolers = 1 + getattr(cfg, "mask_on", False)
     fwd, step = {
         "fpn": ({"nms": 6, "roi_align": poolers},
@@ -2725,7 +2737,7 @@ def expected_launches(cfg) -> tuple:
         "c4": ({"nms": 2}, {"nms": 1}),
         "retinanet": ({"nms": 1}, {}),
     }[ME.variant_of(cfg)]
-    return per(fwd), per(step)
+    return per({**fwd, "canvas": 1}), per(step)
 
 
 def family_node(name: str, weight: str = ""):
@@ -3232,7 +3244,7 @@ P2S_TRAIN_STEPS = 3
 # AffineAlign's gradient (d feats only: theta is data)
 P2S_PER_STEP = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
                 "dcn_sample": 2, "dcn_sample_bwd": 1,
-                "mask_paste": 0}
+                "mask_paste": 0, "canvas": 0}
 P2S_DATASET_IMAGES = 8  # alternately landscape and portrait
 P2S_DATASET_HW = (480, 640)
 # the backward with d feats only, per sample and channel: 4 corner weights
@@ -5467,7 +5479,8 @@ def multi_replicas(dev) -> dict:
             torch.cuda.synchronize()
             counts[path] = kernels.launch_counts()
             want = [one.run_on_bgr_image(img) for img in imgs]
-        if counts[path] != per({"nms": 6, "roi_align": 2}, 2):
+        # one canvas a batch (built on the first device), then each replica
+        if counts[path] != per({"nms": 12, "roi_align": 4, "canvas": 1}):
             raise AssertionError(f"two Mask R-CNN replicas at B = {b} "
                                  f"launched {counts[path]}")
         for r, img in zip(got, imgs):
@@ -5477,7 +5490,7 @@ def multi_replicas(dev) -> dict:
                      f"launches {compact(counts[path])}")
     log("[18 multi-GPU] (a) MaskRCNNPredictor(devices=[cuda:0, cuda:0]) "
         "against devices=None image by image: " + "; ".join(lines)
-        + " (6 K1 + 2 K2 a replica)")
+        + " (a canvas, then 6 K1 + 2 K2 a replica)")
     return counts
 
 
@@ -5945,8 +5958,9 @@ def gate_images(flags: dict, name: str) -> tuple:
 
 def gate_expected(flags: dict, name: str, max_people: int) -> dict:
     """A family's kernel launches over the images the gate gives it, as
-    its code makes them: a forward an image (evaluate_coco at batch 1) of
-    6 K1 + 2 K2 (Mask R-CNN FPN), 2 K1 (C4) or 1 K1 (RetinaNet); one K1 a
+    its code makes them: a canvas and a forward an image (evaluate_coco at
+    batch 1) of 6 K1 + 2 K2 (Mask R-CNN FPN), 2 K1 (C4) or 1 K1
+    (RetinaNet); one K1 a
     YOLOv3 batch of 2; one K4 a chunk of ``max_people`` people of a
     Pose2Seg image; none for YOLACT R-50 (no DCN; Fast-NMS is torch)."""
     ds, ids = gate_images(flags, name)
@@ -5955,9 +5969,10 @@ def gate_expected(flags: dict, name: str, max_people: int) -> dict:
         return per({"dcn_sample": sum(
             -(-len(P2SE.image_keypoints(ds, i)) // max_people)
             for i in ids)})
-    return per({"mask_rcnn_r50_fpn": {"nms": 6 * n, "roi_align": 2 * n},
-                "mask_rcnn_r50_c4": {"nms": 2 * n},
-                "retinanet_r50": {"nms": n},
+    return per({"mask_rcnn_r50_fpn": {"nms": 6 * n, "roi_align": 2 * n,
+                                      "canvas": n},
+                "mask_rcnn_r50_c4": {"nms": 2 * n, "canvas": n},
+                "retinanet_r50": {"nms": n, "canvas": n},
                 "yolov3_608": {"nms": -(-n // 2)}}.get(name, {}))
 
 
@@ -6203,7 +6218,14 @@ VITDET_FRAMES = 3  # 640x480 frames, one request each
 # class-box candidates a frame into the final NMS (which keeps 100) that
 # the class layer's scale is raised to
 VITDET_MIN_CANDIDATES = 50
-VITDET_PER_FRAME = {"nms": 6, "roi_align": 2}
+VITDET_PER_FRAME = {"nms": 6, "roi_align": 2, "canvas": 1}
+# the canvas kernel's checked and timed shapes: (name, frame (h, w), sizes,
+# RGB mean/std else BGR mean): a 640x480 frame onto ViTDet's 1024 canvas
+# and onto the FPN's 800/1333 one, and a 1920x1080 frame (a downscale) onto
+# the FPN's
+CANVAS_TIMED = (("vitdet 1024", (480, 640), 1024, 1024, True),
+                ("fpn 800/1333", (480, 640), 800, 1333, False),
+                ("fpn 800/1333", (1080, 1920), 800, 1333, False))
 
 
 def vitdet_weights(model) -> None:
@@ -6250,12 +6272,78 @@ def calibrate_vitdet(pred: MaskRCNNPredictor, frames: list) -> str:
                          f"candidates a frame ({n.tolist()})")
 
 
+def canvas_bits_differing(call, pred: MaskRCNNPredictor) -> int:
+    """Values of a recorded ``CV.build_canvas`` call's canvases whose bits
+    differ from ``preprocess_image_bgr``'s for the same frames at the
+    predictor's sizes."""
+    (imgs, sizes, canvas_hw, *_), _, (got, _) = call
+    differ = 0
+    for img, (th, tw), canvas in zip(imgs, sizes, got.cpu()):
+        want, hw, _ = preprocess_image_bgr(img, pred.min_image_size,
+                                           pred.max_image_size, pred.rgb_norm)
+        if hw != (th, tw) or want.shape[:2] != tuple(canvas_hw):
+            raise AssertionError(f"canvas sizes {(th, tw)} on {canvas_hw}; "
+                                 f"the host's {hw} on {want.shape[:2]}")
+        differ += int((canvas.permute(1, 2, 0).contiguous().view(torch.int32)
+                       != torch.from_numpy(want).view(torch.int32)).sum())
+    return differ
+
+
+def time_canvas(img: np.ndarray, lo: int, hi: int, rgb_norm, dev) -> tuple:
+    """The canvas of one frame at sizes ``lo``/``hi``, normalised by
+    ``rgb_norm`` or BGR less maskrcnn-benchmark's mean: the kernel's canvas
+    and the plain version's on the card must equal ``preprocess_image_bgr``'s
+    bit for bit. -> (kernel ms through the wrapper, plain ms, bound ms, what
+    bounds it, F.interpolate's antialiased bilinear resize of the f32
+    frame, the launch alone, values whose bits differ)."""
+    (th, tw), chw = ME.canvas_geometry(*img.shape[:2], lo, hi)
+    mean, std = rgb_norm or (ME.DETECTRON_PIXEL_MEAN_BGR, None)
+    rgb = std is not None
+    host, hw, _ = ME.preprocess_image_bgr(img, lo, hi, rgb_norm)
+    want = torch.from_numpy(host).permute(2, 0, 1).contiguous().view(
+        torch.int32)
+    differ = {}
+    for path, ctx in (("kernel", contextlib.nullcontext),
+                      ("plain", kernels.force_plain)):
+        with ctx():
+            got, _ = CV.build_canvas([img], [(th, tw)], chw, mean, std, 0, dev)
+        bits = got[0].cpu().contiguous().view(torch.int32)
+        differ[path] = int((bits != want).sum())
+        if hw != (th, tw) or not torch.equal(bits, want):
+            raise AssertionError(
+                f"canvas of a {img.shape[1]}x{img.shape[0]} frame at "
+                f"{lo}/{hi}: the {path} path's size {(th, tw)}, the host's "
+                f"{hw}; {differ[path]} values differ from the host's")
+    k, p = time_pair(lambda: CV.build_canvas([img], [(th, tw)], chw, mean,
+                                             std, 0, dev))
+    x = torch.from_numpy(np.ascontiguousarray(img)).to(dev).permute(
+        2, 0, 1)[None].float()
+    lib = cuda_time_ms(lambda: F.interpolate(
+        x, size=(th, tw), mode="bilinear", align_corners=False,
+        antialias=True))
+    buf = CV._pack([img], [(th, tw)], 0).to(dev)
+    out = torch.empty((1, 3, *chw), device=dev)
+    norm = [ctypes.c_float(v) for v in (*mean, *(std or (1.0,) * 3))]
+    alone = cuda_time_ms(lambda: kernels.library().tpuseg_canvas_f32(
+        buf.data_ptr(), 1, *chw, *norm, int(rgb), out.data_ptr(),
+        kernels.stream_ptr(dev)))
+    # the canvas written once and the frame read once; a subtraction (and
+    # a division) a channel of each resized pixel
+    return (k, p) + bound(3 * chw[0] * chw[1] * 4 + img.nbytes,
+                          3 * (1 + rgb) * th * tw) + (
+        lib, alone, sum(differ.values()))
+
+
 def phase_vitdet(dev, card: str) -> dict:
     """Phase 20: MaskRCNNPredictor(cfg=ViTDetConfig()) at its published
     sizes, one 640x480 frame a run_on_bgr_image: the launches of each
-    frame, sane detections and masks, every K1 and K2 call of the frames
-    equal bit for bit to its plain version on its own inputs; then a frame
-    on the host clock and the peak memory (information)."""
+    frame, each frame's canvas from the kernel equal bit for bit to the
+    host's ``preprocess_image_bgr``, sane detections and masks, every K1
+    and K2 call of the frames equal bit for bit to its plain version on
+    its own inputs; at ``CANVAS_TIMED`` the kernel's and the plain
+    version's canvases equal the host's bit for bit; then a frame on the
+    host clock, the peak memory and the canvas kernel's times at
+    ``CANVAS_TIMED`` (information)."""
     from tpuseg_torch.models.vitdet import ViTDetConfig
 
     t0 = time.perf_counter()
@@ -6271,7 +6359,8 @@ def phase_vitdet(dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     counts, dets = [], []
     with recording_nms() as nms_calls, \
-            recording_calls(sampling, "multilevel_roi_align") as roi_calls:
+            recording_calls(sampling, "multilevel_roi_align") as roi_calls, \
+            recording_calls(CV, "build_canvas") as canvas_calls:
         for img in frames:
             kernels.reset_launch_counts()
             res = pred.run_on_bgr_image(img)
@@ -6279,6 +6368,10 @@ def phase_vitdet(dev, card: str) -> dict:
             counts.append(kernels.launch_counts())
             dets.append(check_result(res, *img.shape[:2]))
     peak = torch.cuda.max_memory_allocated(dev)
+    differ = [canvas_bits_differing(call, pred) for call in canvas_calls]
+    if len(differ) != VITDET_FRAMES or any(differ):
+        raise AssertionError(f"ViTDet: the kernel's canvases differ from "
+                             f"the host's in {differ} values")
     want = per(VITDET_PER_FRAME)
     if any(c != want for c in counts):
         raise AssertionError(f"ViTDet: launches {counts} per frame; want "
@@ -6288,7 +6381,9 @@ def phase_vitdet(dev, card: str) -> dict:
     log(f"[20 vitdet] MaskRCNNPredictor(cfg=ViTDetConfig()) "
         f"{pred.min_image_size}x{pred.max_image_size} canvas, {calib}: "
         f"launches {compact(want)} on each of {VITDET_FRAMES} "
-        f"{STREAM_HW[1]}x{STREAM_HW[0]} frames; detections {dets}; its NMS "
+        f"{STREAM_HW[1]}x{STREAM_HW[0]} frames; each frame's canvas from "
+        f"the kernel equals preprocess_image_bgr's bit for bit ({differ} "
+        f"values differ); detections {dets}; its NMS "
         f"calls (kept/valid) equal the plain version bit for bit: "
         f"{check_nms_calls(nms_calls)}; its RoIAlign calls equal bit for "
         f"bit: {check_roi_calls(roi_calls)}")
@@ -6297,10 +6392,24 @@ def phase_vitdet(dev, card: str) -> dict:
         t = time.perf_counter()
         pred.run_on_bgr_image(img)
         ms.append(1e3 * (time.perf_counter() - t))
+    rng = np.random.default_rng(20)
+    times = {f"canvas {name} {w}x{h}": time_canvas(
+        frames[0] if (h, w) == frames[0].shape[:2]
+        else rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+        lo, hi, pred.rgb_norm if rgb else None, dev)
+        for name, (h, w), lo, hi, rgb in CANVAS_TIMED}
     log(f"[20 vitdet] a frame {np.median(ms):.2f} ms on the host clock "
-        f"(median of {len(ms)}); peak memory {peak / 1e9:.2f} GB; phase 20 "
-        f"in {time.perf_counter() - t0:.1f} s [{card}]")
-    return {"counts": per(VITDET_PER_FRAME, VITDET_FRAMES)}
+        f"(median of {len(ms)}); peak memory {peak / 1e9:.2f} GB; "
+        + "; ".join(f"{label}: kernel and plain canvases equal the "
+                    f"host's bit for bit ({t[6]} values differ), kernel "
+                    f"{t[0]:.4f} ms (the launch alone {t[5]:.4f} ms), plain "
+                    f"{t[1]:.4f} ms, bound {t[2]:.4g} ms by {t[3]}, "
+                    f"F.interpolate {t[4]:.4f} ms"
+                    for label, t in times.items())
+        + f"; phase 20 in {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"counts": per(VITDET_PER_FRAME, VITDET_FRAMES), "times": times,
+            "label": next(iter(times)),
+            "differ": sum(differ) + sum(t[6] for t in times.values())}
 
 
 def kernel_entry(name, source, replaces, launches: dict, err, t) -> dict:
@@ -6537,6 +6646,17 @@ def main() -> int:
                         launches("mask_paste"), paste["flips"]["plain"][0],
                         times[paste["label"]]),
          "pixels_differing_from_host": paste["flips"]["host"][0]},
+        # a 640x480 frame onto ViTDet's canvas and onto the FPN's, a
+        # 1920x1080 one onto the FPN's; its error the values whose bits
+        # differ from the host's canvas, over these and phase 20's frames
+        {**kernel_entry("canvas", "tpuseg_torch/csrc/canvas.cu",
+                        "none: the JAX engine builds the canvas on the host "
+                        "(tpuseg/engine/maskrcnn_engine.py "
+                        "preprocess_image_bgr)",
+                        launches("canvas"), vitdet["differ"],
+                        vitdet["times"][vitdet["label"]]),
+         "shapes": {label: shape_entry(t)
+                    for label, t in vitdet["times"].items()}},
     ]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -300,7 +300,8 @@ def test_pooler_autograd_uses_both_kernels():
     (out * dp).sum().backward()
     assert kernels.launch_counts() == {"nms": 0, "roi_align": 1,
                                        "roi_align_bwd": 1, "dcn_sample": 0,
-                                       "dcn_sample_bwd": 0, "mask_paste": 0}
+                                       "dcn_sample_bwd": 0, "mask_paste": 0,
+                                       "canvas": 0}
     want = sampling.multilevel_roi_align_backward(
         dp, boxes, bidx, levels, [f.shape for f in feats], torch.float32, 7, 2)
     _assert_bwd_close([f.grad for f in feats], want, torch.float32)

@@ -3,7 +3,12 @@ and shared while no profiler records; under ``torch.profiler`` nested
 ``tpuseg_torch/<stage>`` ranges and exact counters in ``do_train``,
 ``YolactPredictor.predict_images``, ``MaskRCNNPredictor.run_on_bgr_images``
 and ViTDet's attention blocks; and the training loops' console lines
-timing whole iterations, batch build included."""
+timing whole iterations, batch build included. The helpers that need jax
+are imported inside the tests that use them, so on a machine without jax
+the ``cuda`` test runs without the repository's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_trace.py
+"""
 import dataclasses
 import functools
 import re
@@ -15,13 +20,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import synthetic_yolact_state_dict
-from tests.test_torch_yolact_train_bn import _Dataset
-from tests.test_yolact_engine import _write_synth_dataset
 from tpuseg_torch.configs.presets import yolact_loss_config, yolact_model_config
 from tpuseg_torch.data.coco_dataset import CocoDetectionDataset
 from tpuseg_torch.engine import detectron_train_loop as TD
 from tpuseg_torch.engine import yolact_train_loop as YTL
-from tpuseg_torch.engine.maskrcnn_engine import MaskRCNNPredictor
+from tpuseg_torch.engine.maskrcnn_engine import (MaskRCNNPredictor,
+                                                 canvas_geometry)
 from tpuseg_torch.engine.yolact_engine import YolactPredictor
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import vitdet as VD
@@ -40,6 +44,8 @@ SLEEP = 0.2  # seconds added to each example's build
 def dataset(tmp_path_factory):
     """``tests/test_torch_train_loop.py``'s two 128x128 images, read by the
     port's dataset."""
+    from tests.test_yolact_engine import _write_synth_dataset  # jax
+
     img_dir, ann = _write_synth_dataset(str(tmp_path_factory.mktemp("coco")))
     return CocoDetectionDataset(img_dir, ann, label_map={1: 1, 2: 2})
 
@@ -58,7 +64,7 @@ def ranges(prof) -> dict:
     program's spans, the prefix taken off."""
     out = {}
     for e in prof.profiler.kineto_results.events():
-        if (str(e.activity_type()) == "user_annotation"
+        if ("CPU" in str(e.device_type())  # not a gpu_user_annotation
                 and e.name().startswith(timer.SPAN_PREFIX)):
             out.setdefault(e.name()[len(timer.SPAN_PREFIX):], []).append(
                 (e.start_ns(), e.end_ns()))
@@ -172,17 +178,23 @@ def test_predictor_spans_and_counters():
     assert timer.counters() == {}
 
 
-def test_maskrcnn_predictor_and_vit_spans_and_counters():
-    """ViTDet at a small size (``tests/test_torch_vitdet.py``'s: 4 windowed
-    blocks over an 8 x 8 grid padded to 9 x 9, 2 global): one request of
-    two images holds one run, a paste and a download an image, and one
-    attention range a block and image batch; the counters are exact, and
-    nothing is counted without a profiler."""
-    from tests.test_torch_vitdet import CFG
+# ViTDet at a small size, ``tests/test_torch_vitdet.py``'s: 4 windowed
+# blocks over an 8 x 8 grid padded to 9 x 9, 2 global
+VITDET_CFG = VD.ViTDetConfig(
+    img_size=128, embed_dim=96, vit_depth=6, num_heads=2, window_size=3,
+    window_block_indexes=(0, 1, 3, 4), pretrain_img_size=96,
+    fpn_channels=32, num_classes=5, box_fc_dim=64, min_size_test=128,
+    max_size_test=128)
 
+
+def _vitdet_request(device):
+    """One traced request of two images through ViTDet at VITDET_CFG on
+    ``device``: one canvas and one run, a paste and a download an image,
+    one attention range a block and image batch. -> (the predictor, the
+    frames, the counters)."""
     pred = MaskRCNNPredictor(
-        model=VD.build_model(CFG, torch.Generator().manual_seed(5)),
-        device="cpu")
+        model=VD.build_model(VITDET_CFG, torch.Generator().manual_seed(5)),
+        device=device)
     rng = np.random.default_rng(6)
     imgs = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8)
             for _ in range(2)]
@@ -191,12 +203,15 @@ def test_maskrcnn_predictor_and_vit_spans_and_counters():
         res = pred.run_on_bgr_images(imgs)
     spans = ranges(prof)
     assert len(spans["predictor.request"]) == 1
+    assert children(spans, "predictor.request", "predictor.canvas") == [1]
     assert children(spans, "predictor.request", "predictor.run") == [1]
     assert children(spans, "predictor.request", "predictor.paste") == [2]
     assert children(spans, "predictor.request", "predictor.download") == [2]
     assert children(spans, "predictor.run", "vit.window_attn") == [4]
     assert children(spans, "predictor.run", "vit.global_attn") == [2]
-    assert timer.counters() == {
+    c = timer.counters()
+    assert {k: v for k, v in c.items() if k not in (
+        "predictor.upload_bytes", "predictor.canvases_on_device")} == {
         "predictor.images": 2,
         "predictor.masks": sum(len(r["scores"]) for r in res),
         "predictor.download_bytes": sum(v.nbytes for r in res
@@ -207,6 +222,30 @@ def test_maskrcnn_predictor_and_vit_spans_and_counters():
     assert timer.counters() == {}
     assert all(np.array_equal(a[k], b[k]) for a, b in zip(res, again)
                for k in a)
+    return pred, imgs, c
+
+
+def test_maskrcnn_predictor_and_vit_spans_and_counters():
+    """On the host the canvases are built there: the f32 canvases are the
+    bytes sent, none is built on a device; nothing is counted without a
+    profiler."""
+    pred, imgs, c = _vitdet_request("cpu")
+    _, (hc, wc) = canvas_geometry(120, 160, pred.min_image_size,
+                                  pred.max_image_size)
+    assert c["predictor.upload_bytes"] == 2 * 3 * hc * wc * 4
+    assert "predictor.canvases_on_device" not in c
+
+
+@pytest.mark.cuda
+def test_maskrcnn_predictor_spans_and_counters_on_the_card():
+    """On a CUDA predictor every image's canvas is built on the card, and
+    only the uint8 frames and their tap tables are sent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, imgs, c = _vitdet_request("cuda")
+    assert c["predictor.canvases_on_device"] == c["predictor.images"] == 2
+    frames = sum(img.nbytes for img in imgs)
+    assert frames < c["predictor.upload_bytes"] < frames + 64 * 1024 * 2
 
 
 def test_trace_prints_the_span_table(tmp_path, capsys):
@@ -253,6 +292,8 @@ def test_do_train_time_covers_the_batch_build(dataset, narrow, monkeypatch,
 
 def test_yolact_train_s_per_it_covers_the_batch_build(monkeypatch, tmp_path,
                                                       capsys):
+    from tests.test_torch_yolact_train_bn import _Dataset  # jax
+
     monkeypatch.setattr(YTL, "batch_to_device", slowed(YTL.batch_to_device))
     monkeypatch.setattr(YTL, "train_step",
                         quick_step(YTL.LOSS_KEYS + ("total",)))

@@ -13,11 +13,19 @@ FPN, 14x14 C4) pasted into image coordinates with upstream Masker
 semantics; boxes-only models give no ``masks``. :func:`evaluate_coco`
 scores a dataset with the port's COCOeval (``tpuseg_torch/eval``).
 
+On a CUDA predictor the canvas is built on the card instead
+(``kernels/canvas.py``): each uint8 frame goes up as it is, pinned, and
+one kernel resizes it bit-equal to PIL's bilinear, normalises it and pads
+it into the NCHW canvas; the host computes only the sizes
+(:func:`canvas_geometry`). A CPU predictor builds it on the host
+(:func:`preprocess_image_bgr`).
+
 ``run_on_bgr_images`` marks the program's spans ``predictor.request``,
-``predictor.run`` (the forward's issue), ``predictor.paste`` and
-``predictor.download``, and counts ``predictor.images``,
-``predictor.masks`` and ``predictor.download_bytes``, under the YOLACT
-predictor's names (``utils/timer.py``).
+``predictor.canvas``, ``predictor.run`` (the forward's issue),
+``predictor.paste`` and ``predictor.download``, and counts
+``predictor.images``, ``predictor.masks``, ``predictor.download_bytes``,
+``predictor.upload_bytes`` and ``predictor.canvases_on_device``, under the
+YOLACT predictor's names where it has them (``utils/timer.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.kernels import canvas as CV
 from tpuseg_torch.models import maskrcnn as M
 from tpuseg_torch.models import maskrcnn_c4 as C4
 from tpuseg_torch.models import retinanet as RN
@@ -93,6 +102,16 @@ def preprocess_image_bgr(img_bgr: np.ndarray, min_size=800, max_size=1333,
         rgb = resized[:, :, ::-1].astype(np.float32)
         canvas[:th, :tw] = (rgb - mean) / std
     return canvas, (th, tw), (th / h, tw / w)
+
+
+def canvas_geometry(h: int, w: int, min_size=800, max_size=1333) -> tuple:
+    """:func:`preprocess_image_bgr`'s sizes alone: an h x w image ->
+    ((th, tw) its resized size, (Hc, Wc) its canvas)."""
+    th, tw = detectron_target_size(h, w, min_size, max_size)
+    long_edge = -(-max_size // 64) * 64
+    th, tw = min(th, long_edge), min(tw, long_edge)
+    return (th, tw), ((min_size, long_edge) if tw >= th
+                      else (long_edge, min_size))
 
 
 def paste_masks(masks28: torch.Tensor, boxes: torch.Tensor, im_h: int,
@@ -210,23 +229,10 @@ class MaskRCNNPredictor:
         Returns, per image, numpy ``boxes``, ``scores``, ``classes`` (0-based)
         and, where the model has a mask head, ``masks`` [n, h, w] uint8."""
         with timer.span("predictor.request"):
-            canvases, hws, scales = [], [], []
-            for img in imgs_bgr:
-                canvas, hw, scale = preprocess_image_bgr(
-                    img, self.min_image_size, self.max_image_size,
-                    self.rgb_norm)
-                canvases.append(canvas)
-                hws.append(hw)
-                scales.append(scale)
-            if len({c.shape for c in canvases}) != 1:
-                raise ValueError("a batch must share one canvas orientation")
-            pad = (-len(canvases)) % self.n_devices
-            # the shards must divide across the devices: blank canvases of
-            # size 1 x 1 fill the batch (1 image on 8 devices pads to 8)
-            canvases += [np.zeros_like(canvases[0])] * pad
-            hws += [(1, 1)] * pad
-            images = torch.from_numpy(np.stack(canvases).transpose(
-                0, 3, 1, 2).copy()).to(self.device)
+            with timer.span("predictor.canvas"):
+                images, hws = self._canvases(imgs_bgr)
+            scales = [(th / img.shape[0], tw / img.shape[1])
+                      for (th, tw), img in zip(hws, imgs_bgr)]
             image_hw = torch.tensor(hws, dtype=torch.int64,
                                     device=self.device)
             with torch.inference_mode():
@@ -254,6 +260,34 @@ class MaskRCNNPredictor:
         timer.count("predictor.images", len(results))
         timer.count("predictor.masks", sum(len(r["scores"]) for r in results))
         return results
+
+    def _canvases(self, imgs_bgr: list) -> tuple:
+        """The batch's canvases on the device, f32 [B + pad, 3, Hc, Wc],
+        and each canvas' real (h, w). The shards must divide across the
+        devices: blank canvases of size 1 x 1 fill the batch (1 image on 8
+        devices pads to 8)."""
+        geometry = [canvas_geometry(*img.shape[:2], self.min_image_size,
+                                    self.max_image_size) for img in imgs_bgr]
+        if len({chw for _, chw in geometry}) != 1:
+            raise ValueError("a batch must share one canvas orientation")
+        hws = [hw for hw, _ in geometry]
+        pad = (-len(imgs_bgr)) % self.n_devices
+        if self.device.type == "cuda":
+            mean, std = self.rgb_norm or (DETECTRON_PIXEL_MEAN_BGR, None)
+            images, sent = CV.build_canvas(imgs_bgr, hws, geometry[0][1],
+                                           mean, std, pad, self.device)
+            timer.count("predictor.canvases_on_device", len(imgs_bgr))
+        else:
+            canvases = [preprocess_image_bgr(img, self.min_image_size,
+                                             self.max_image_size,
+                                             self.rgb_norm)[0]
+                        for img in imgs_bgr]
+            canvases += [np.zeros_like(canvases[0])] * pad
+            images = torch.from_numpy(np.stack(canvases).transpose(
+                0, 3, 1, 2).copy()).to(self.device)
+            sent = images.nbytes
+        timer.count("predictor.upload_bytes", sent)
+        return images, hws + [(1, 1)] * pad
 
     def select_top_predictions(self, preds: dict) -> dict:
         keep = preds["scores"] >= self.confidence_threshold

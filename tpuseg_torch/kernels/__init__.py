@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("nms.cu", "roi_align.cu", "roi_align_bwd.cu", "dcn_sample.cu",
-           "dcn_sample_bwd.cu", "mask_paste.cu")
+           "dcn_sample_bwd.cu", "mask_paste.cu", "canvas.cu")
 HEADERS = ("roi_align_common.cuh", "vec_io.cuh")  # hashed with the sources
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -70,10 +70,13 @@ _SIGNATURES = {
     # masks, their strides (slot, row, column; elements), index, n, S, H,
     # W, out, stream
     "tpuseg_mask_paste_f32": [_P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _P],
+    # upload (descriptors, tap tables, frames), B, Hc, Wc, mean[3], std[3],
+    # RGB (x - mean) / std (else BGR x - mean), out, stream
+    "tpuseg_canvas_f32": [_P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P, _P],
 }
 
 LAUNCHES = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0, "dcn_sample": 0,
-            "dcn_sample_bwd": 0, "mask_paste": 0}
+            "dcn_sample_bwd": 0, "mask_paste": 0, "canvas": 0}
 
 _state = {"lib": None, "force_plain": False}
 # the replicas of parallel/inference.py launch from one thread each
@@ -109,12 +112,14 @@ def force_plain():
         _state["force_plain"] = prev
 
 
-def use_kernel(t: torch.Tensor) -> bool:
-    """True: launch the CUDA kernel; False: run the plain version."""
-    if t.device.type == "cpu":
+def use_kernel(t) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version. ``t``: a
+    tensor, or the device the work runs on."""
+    dev = t if isinstance(t, torch.device) else t.device
+    if dev.type == "cpu":
         return False
-    if t.device.type != "cuda":
-        raise RuntimeError(f"no kernel or plain path for device {t.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel or plain path for device {dev}")
     return not _state["force_plain"]
 
 
